@@ -1,0 +1,28 @@
+"""mpc_bulletproof_tpu_torch: the PyTorch and CUDA port of mpc_bulletproof_tpu.
+
+The aggregated range prover runs on one NVIDIA Hopper card (H100): plain
+tensor code in PyTorch, the point and inverse work in hand-written CUDA
+kernels (``csrc/``, built with ``nvcc`` at first use).  Proofs are byte for
+byte the JAX package's.  The package imports torch and numpy, never jax and
+nothing of mpc_bulletproof_tpu; it keeps its own copy of the host layer
+(constants, scalars, points, keccak, transcript, generators).
+"""
+
+from .generators import BulletproofGens, PedersenGens
+from .models.inner_product import InnerProductProof
+from .models.range_proof import RangeProof
+from .ops.curve import StarkPoint
+from .ops.field import Scalar
+from .transcript import HashChainTranscript
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BulletproofGens",
+    "HashChainTranscript",
+    "InnerProductProof",
+    "PedersenGens",
+    "RangeProof",
+    "Scalar",
+    "StarkPoint",
+]

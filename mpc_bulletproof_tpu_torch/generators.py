@@ -1,0 +1,128 @@
+"""Pedersen bases and the deterministic Bulletproof generator chains.
+
+The port's own ``PedersenGens`` / ``BulletproofGens``, giving the same points
+as the JAX package's.  A chain is a keccak hash walk::
+
+    state_0 = keccak256(pad_label(b"GeneratorsChain" || label))
+    state_{i+1} = keccak256(state_i);  generator_i = hash_to_scalar(state_{i+1}) G
+
+The 2m chains walk side by side on the host (:func:`.ops.keccak.keccak256_batch32`);
+the ``scalar G`` products run through the port's fixed-base path
+(:func:`.ops.msm.fixed_commit`) on ``device``, then come back as host points.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .constants import R
+from .ops.curve import StarkPoint
+from .ops.field import Scalar
+from .ops.keccak import keccak256, keccak256_batch32, pad_label
+from .utils.device import resolve_device
+
+_TABLE_CACHE: dict = {}
+
+
+def device_point_table(pt: StarkPoint, device) -> torch.Tensor:
+    """Fixed-base table of ``pt`` on ``device`` (:func:`.ops.msm.fixed_base_table`),
+    cached per point and device: the curve generator serves the chains and,
+    by default, both Pedersen bases."""
+    from .ops import curve_t, msm
+
+    key = (pt.to_bytes(), str(torch.device(device)))
+    table = _TABLE_CACHE.get(key)
+    if table is None:
+        base = torch.as_tensor(curve_t.points_from_host([pt]), device=device)
+        table = msm.fixed_base_table(base)
+        _TABLE_CACHE[key] = table
+    return table
+
+
+def fixed_base_mul(scalars, pt: StarkPoint, device) -> list[StarkPoint]:
+    """``[s pt for s in scalars]`` through the fixed-base table on ``device``."""
+    from .ops import curve_t, msm, transcript_t
+    from .ops.limb import words_to_ints
+
+    k = len(scalars)
+    table = device_point_table(pt, device)
+    sc = torch.as_tensor(curve_t.scalars_from_host(scalars), device=device)
+    off = torch.zeros(k, dtype=torch.int64, device=device)
+    pts = msm.fixed_commit(table, off, sc, off, torch.zeros_like(sc))
+    x, y, is_id = transcript_t.lazy_points_to_affine(pts)
+    xs, ys, ids = words_to_ints(x), words_to_ints(y), is_id.cpu().tolist()
+    return [StarkPoint.identity() if i else StarkPoint(a, b) for a, b, i in zip(xs, ys, ids)]
+
+
+class PedersenGens:
+    """The pair of Pedersen bases; both default to the curve generator."""
+
+    __slots__ = ("B", "B_blinding")
+
+    def __init__(self, B: StarkPoint | None = None, B_blinding: StarkPoint | None = None):
+        self.B = B if B is not None else StarkPoint.generator()
+        self.B_blinding = B_blinding if B_blinding is not None else StarkPoint.generator()
+
+
+def _chain_start(label: bytes) -> bytes:
+    return keccak256(pad_label(b"GeneratorsChain" + label))
+
+
+def chain_scalars(labels: list[bytes], skip: int, count: int) -> list[list[Scalar]]:
+    """Scalars ``skip .. skip + count - 1`` of each labelled chain, the chains
+    walked side by side."""
+    states = np.frombuffer(b"".join(_chain_start(l) for l in labels), np.uint8)
+    states = states.reshape(len(labels), 32)
+    for _ in range(skip):
+        states = keccak256_batch32(states)
+    steps = []
+    for _ in range(count):
+        states = keccak256_batch32(states)
+        steps.append(states)
+    if not steps:
+        return [[] for _ in labels]
+    walked = np.stack(steps, axis=1).reshape(-1, 32)      # (chains * count, 32)
+    high = keccak256_batch32(walked)
+    both = np.concatenate([walked, high], axis=1).tobytes()
+    vals = [int.from_bytes(both[64 * i : 64 * i + 64], "little") % R for i in range(walked.shape[0])]
+    return [[Scalar(v) for v in vals[c * count : (c + 1) * count]] for c in range(len(labels))]
+
+
+def _party_label(prefix: bytes, party_index: int) -> bytes:
+    return prefix + party_index.to_bytes(4, "little")
+
+
+class BulletproofGens:
+    """Generators for up to ``party_capacity`` aggregated proofs of up to
+    ``gens_capacity`` bits each; party j's G and H chains are labelled
+    ``b"G" || j`` and ``b"H" || j`` (u32 little-endian).  The points are
+    derived on ``device`` (the card unless the caller asks for the CPU)."""
+
+    def __init__(self, gens_capacity: int, party_capacity: int = 1, *, device="cuda"):
+        self.gens_capacity = 0
+        self.party_capacity = party_capacity
+        self.device = resolve_device(device)
+        self.G_vec: list[list[StarkPoint]] = [[] for _ in range(party_capacity)]
+        self.H_vec: list[list[StarkPoint]] = [[] for _ in range(party_capacity)]
+        self.increase_capacity(gens_capacity)
+
+    def increase_capacity(self, new_capacity: int) -> None:
+        if self.gens_capacity >= new_capacity:
+            return
+        extra = new_capacity - self.gens_capacity
+        m = self.party_capacity
+        labels = [_party_label(b"G", i) for i in range(m)] + [_party_label(b"H", i) for i in range(m)]
+        chains = chain_scalars(labels, self.gens_capacity, extra)
+        pts = fixed_base_mul([s for ch in chains for s in ch], StarkPoint.generator(), self.device)
+        for c in range(2 * m):
+            vec = self.G_vec[c] if c < m else self.H_vec[c - m]
+            vec.extend(pts[c * extra : (c + 1) * extra])
+        self.gens_capacity = new_capacity
+
+    def G(self, n: int, m: int) -> list[StarkPoint]:
+        """Party-major aggregated G vector."""
+        return [self.G_vec[j][i] for j in range(m) for i in range(n)]
+
+    def H(self, n: int, m: int) -> list[StarkPoint]:
+        return [self.H_vec[j][i] for j in range(m) for i in range(n)]

@@ -1,0 +1,102 @@
+"""Host scalar-field arithmetic (``Scalar``), pure Python.
+
+The port's own copy of the JAX package's host ``Scalar``: exact Python
+integers mod ``R``, used for the protocol glue (blinding draws, proof
+scalars) and as the golden model of the tensor field layer
+(:mod:`.limb`).
+"""
+
+from __future__ import annotations
+
+import secrets
+
+from ..constants import R, SCALAR_BYTES
+
+
+class Scalar:
+    """An element of the STARK-curve scalar field (integers mod ``R``)."""
+
+    __slots__ = ("value",)
+
+    MODULUS = R
+
+    def __init__(self, value: "int | Scalar" = 0):
+        if isinstance(value, Scalar):
+            self.value = value.value
+        else:
+            self.value = value % R
+
+    @staticmethod
+    def zero() -> "Scalar":
+        return Scalar(0)
+
+    @staticmethod
+    def one() -> "Scalar":
+        return Scalar(1)
+
+    @staticmethod
+    def random(rng=None) -> "Scalar":
+        """Uniformly random scalar. ``rng`` may supply ``randbytes(n)``."""
+        raw = (
+            secrets.token_bytes(SCALAR_BYTES + 16)
+            if rng is None
+            else rng.randbytes(SCALAR_BYTES + 16)
+        )
+        return Scalar(int.from_bytes(raw, "big"))
+
+    @staticmethod
+    def from_be_bytes_mod_order(data: bytes) -> "Scalar":
+        return Scalar(int.from_bytes(data, "big"))
+
+    def to_bytes_be(self) -> bytes:
+        return self.value.to_bytes(SCALAR_BYTES, "big")
+
+    def __add__(self, other):
+        if not isinstance(other, (Scalar, int)):
+            return NotImplemented
+        return Scalar(self.value + int(other))
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        if not isinstance(other, (Scalar, int)):
+            return NotImplemented
+        return Scalar(self.value - int(other))
+
+    def __rsub__(self, other):
+        if not isinstance(other, (Scalar, int)):
+            return NotImplemented
+        return Scalar(int(other) - self.value)
+
+    def __mul__(self, other):
+        if not isinstance(other, (Scalar, int)):
+            return NotImplemented
+        return Scalar(self.value * int(other))
+
+    __rmul__ = __mul__
+
+    def __neg__(self) -> "Scalar":
+        return Scalar(-self.value)
+
+    def __pow__(self, exponent: int) -> "Scalar":
+        return Scalar(pow(self.value, exponent, R))
+
+    def inverse(self) -> "Scalar":
+        """Multiplicative inverse (raises ``ValueError`` on zero)."""
+        return Scalar(pow(self.value, -1, R))
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, Scalar):
+            return self.value == other.value
+        if isinstance(other, int):
+            return self.value == other % R
+        return NotImplemented
+
+    def __hash__(self) -> int:
+        return hash(("Scalar", self.value))
+
+    def __repr__(self) -> str:
+        return f"Scalar(0x{self.value:x})"
+
+    def __int__(self) -> int:
+        return self.value

@@ -1,0 +1,348 @@
+"""The prover's hand-written CUDA kernels, their wrappers and their plain versions.
+
+Five kernels carry the fused range prover's point and inverse work.  Each
+replaces one Pallas kernel of ``mpc_bulletproof_tpu/ops/kernels.py``:
+
+=========================  ===================================  =======================
+wrapper                    CUDA source (``csrc/``)              replaces
+=========================  ===================================  =======================
+``point_add``              ``point_add.cu``                     ``point_add``
+``point_scan_steps_inner`` ``point_scan.cu``                    ``point_scan_steps_inner``
+``point_horner_multi``     ``point_horner.cu``                  ``point_horner_multi``
+``point_reduce``           ``point_reduce.cu``                  ``point_reduce``
+``mod_pow_static``         ``mod_pow.cu``                       ``mod_pow_static``
+=========================  ===================================  =======================
+
+Every wrapper checks dtype, shape and contiguity the same way for every
+device.  For a tensor on the CPU it runs the plain PyTorch version beside
+it (the CPU tests use those); for a CUDA tensor it launches the kernel on
+the current stream, raises if the launch was refused, and counts the
+launch in :data:`launches`.  There is no fallback from one to the other.
+
+The kernels are compiled with ``nvcc`` at first use, one shared library
+per source, all sources at once (:func:`build`), into ``build/`` beside
+this package, and bound with ``ctypes``: the build takes seconds, where a
+source including PyTorch's headers takes minutes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from .curve_t import _point_add, identity
+from .limb import FP, FR, NW, ModParams, from_pieces, ints_to_words, mont_mul_p, to_pieces
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# kernel name -> (source, C entry point, ctypes argtypes)
+_P, _LL, _I, _U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint64
+KERNELS = {
+    "point_add": ("point_add.cu", "bp_point_add", [_P, _P, _P, _LL, _P]),
+    "point_scan_steps_inner": ("point_scan.cu", "bp_point_scan", [_P, _P, _I, _LL, _P]),
+    "point_horner_multi": ("point_horner.cu", "bp_point_horner", [_P, _P, _I, _I, _LL, _P]),
+    "point_reduce": ("point_reduce.cu", "bp_point_reduce", [_P, _P, _LL, _P]),
+    "mod_pow_static": ("mod_pow.cu", "bp_mod_pow", [_P, _P, _LL, _U, _U, _U, _U, _I, _P]),
+}
+
+# Launches per kernel since the last reset_launches(); only a launch of the
+# CUDA kernel counts, never a run of the plain version.
+launches = {name: 0 for name in KERNELS}
+
+_FNS: dict = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(source: str) -> Path:
+    """Library path keyed by the source, the shared headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [CSRC / source] + sorted(CSRC.glob("*.cuh")):
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile every kernel source that has no library yet, one ``nvcc`` per
+    source, all started together.  Returns ``{name: (library path, ptxas
+    report)}``; raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (source, _, _) in KERNELS.items():
+        lib = _lib_path(source)
+        if not lib.exists():
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True), tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(out)
+        if proc.returncode == 0:
+            os.replace(tmp, lib)
+        else:
+            failed.append(f"{name}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    report = {}
+    for name, (source, _, _) in KERNELS.items():
+        lib = _lib_path(source)
+        log = lib.with_suffix(".log")
+        report[name] = (str(lib), log.read_text() if log.exists() else "")
+    return report
+
+
+def _fn(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        source, symbol, argtypes = KERNELS[name]
+        lib = _lib_path(source)
+        if not lib.exists():
+            build()
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def _launch(name: str, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = _fn(name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    launches[name] += 1
+
+
+def _check(t: torch.Tensor, what: str, shape=None, lead=None) -> str:
+    """Validate a kernel operand; returns its device type ('cpu' or 'cuda')."""
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int64:
+        raise TypeError(f"{what}: expected an int64 tensor")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if lead is not None and tuple(t.shape[: len(lead)]) != tuple(lead):
+        raise ValueError(f"{what}: expected leading dims {tuple(lead)}, got {tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type
+
+
+# ---------------------------------------------------------------------------
+# point_add
+# ---------------------------------------------------------------------------
+
+def point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Complete point addition of two ``(3, NW, *batch)`` batches of the same
+    shape.  No broadcasting: the caller expands an operand explicitly."""
+    dev = _check(a, "point_add a", lead=(3, NW))
+    if _check(b, "point_add b", shape=a.shape) != dev or b.device != a.device:
+        raise ValueError("point_add: operands on different devices")
+    if dev == "cpu":
+        return _point_add(a, b)
+    out = torch.empty_like(a)
+    _launch("point_add", a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // (3 * NW))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# point_scan_steps_inner
+# ---------------------------------------------------------------------------
+
+def point_scan_plain(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along axis 2 of ``(3, NW, T, L)``, step by step."""
+    acc = x[:, :, 0]
+    outs = [acc]
+    for t in range(1, x.shape[2]):
+        acc = _point_add(acc, x[:, :, t])
+        outs.append(acc)
+    return torch.stack(outs, dim=2)
+
+
+def point_scan_steps_inner(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix point-sum along the step axis T of a ``(3, NW, T, L)``
+    batch; the L lanes are independent scans."""
+    dev = _check(x, "point_scan_steps_inner x", lead=(3, NW))
+    if x.dim() != 4:
+        raise ValueError("point_scan_steps_inner: expected (3, NW, T, L)")
+    if dev == "cpu":
+        return point_scan_plain(x)
+    out = torch.empty_like(x)
+    _launch("point_scan_steps_inner", x.data_ptr(), out.data_ptr(), x.shape[2], x.shape[3])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# point_horner_multi
+# ---------------------------------------------------------------------------
+
+def point_horner_plain(window_sums: torch.Tensor, c: int) -> torch.Tensor:
+    """``sum_w 2^(c w) S_w``: from the most significant window, c doublings
+    then one add per window, starting from the identity."""
+    k = window_sums.shape[-1]
+    acc = identity((k,), window_sums.device).contiguous()
+    for w in range(window_sums.shape[0] - 1, -1, -1):
+        for _ in range(c):
+            acc = _point_add(acc, acc)
+        acc = _point_add(acc, window_sums[w])
+    return acc
+
+
+def point_horner_multi(window_sums: torch.Tensor, c: int) -> torch.Tensor:
+    """Horner combine of ``(nw, 3, NW, k)`` window sums (window 0 least
+    significant) -> ``(3, NW, k)``."""
+    dev = _check(window_sums, "point_horner_multi window_sums")
+    if window_sums.dim() != 4 or tuple(window_sums.shape[1:3]) != (3, NW):
+        raise ValueError("point_horner_multi: expected (nw, 3, NW, k)")
+    if not 1 <= c <= 30:
+        raise ValueError("point_horner_multi: window size out of range")
+    if dev == "cpu":
+        return point_horner_plain(window_sums, c)
+    nw, _, _, k = window_sums.shape
+    out = torch.empty((3, NW, k), dtype=torch.int64, device=window_sums.device)
+    _launch("point_horner_multi", window_sums.data_ptr(), out.data_ptr(), nw, c, k)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# point_reduce
+# ---------------------------------------------------------------------------
+
+REDUCE_THREADS = 256  # must match csrc/point_reduce.cu
+
+
+def point_reduce_plain(pts: torch.Tensor) -> torch.Tensor:
+    """Sum of ``(3, NW, n)`` points, added in the kernel's order: lane t of
+    REDUCE_THREADS folds points t, t + 256, ... from the identity, then a
+    halving tree folds the 256 partial sums.  The same order gives the same
+    projective words, not only the same group element."""
+    n = pts.shape[-1]
+    acc = identity((REDUCE_THREADS,), pts.device).contiguous()
+    for start in range(0, n, REDUCE_THREADS):
+        width = min(REDUCE_THREADS, n - start)
+        head = _point_add(acc[..., :width], pts[..., start : start + width])
+        acc = torch.cat([head, acc[..., width:]], dim=-1)
+    s = REDUCE_THREADS // 2
+    while s > 0:
+        acc = _point_add(acc[..., :s], acc[..., s : 2 * s])
+        s //= 2
+    return acc
+
+
+def point_reduce(pts: torch.Tensor) -> torch.Tensor:
+    """Sum of a ``(3, NW, n)`` point batch over the batch axis -> ``(3, NW, 1)``."""
+    dev = _check(pts, "point_reduce pts", lead=(3, NW))
+    if pts.dim() != 3:
+        raise ValueError("point_reduce: expected (3, NW, n)")
+    if dev == "cpu":
+        return point_reduce_plain(pts)
+    out = torch.empty((3, NW, 1), dtype=torch.int64, device=pts.device)
+    _launch("point_reduce", pts.data_ptr(), out.data_ptr(), pts.shape[-1])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mod_pow_static
+# ---------------------------------------------------------------------------
+
+def _ladder_plain(xp: torch.Tensor, exponent: int, mp: ModParams) -> torch.Tensor:
+    """``x^e`` on Montgomery-form pieces by the kernel's ladder: a table of
+    x^0..x^15, then per base-16 digit (most significant first, leading zeros
+    skipped) four squarings and one product by the digit's entry."""
+    one = to_pieces(torch.as_tensor(ints_to_words([mp.mont_r]), device=xp.device)).expand_as(xp)
+    table = [one, xp]
+    for _ in range(14):
+        table.append(mont_mul_p(table[-1], xp, mp))
+    acc = one
+    started = False
+    for d in range(63, -1, -1):
+        digit = (exponent >> (4 * d)) & 15
+        if started:
+            for _ in range(4):
+                acc = mont_mul_p(acc, acc, mp)
+        if digit:
+            acc = mont_mul_p(acc, table[digit], mp)
+            started = True
+    return acc
+
+
+def _batch_inverse_plain(xp: torch.Tensor, mp: ModParams) -> torch.Tensor:
+    """Inverses of nonzero Montgomery-form pieces ``(NP, n)`` by Montgomery's
+    trick: prefix and suffix products (log-depth doubling scans), one
+    ladder for the inverse of the total, then ``x_i^-1 = total^-1
+    prod_{j != i} x_j``."""
+    n = xp.shape[-1]
+    mul = lambda a, b: mont_mul_p(a, b, mp)
+    pre, suf, sh = xp, xp, 1
+    while sh < n:
+        pre = torch.cat([pre[:, :sh], mul(pre[:, sh:], pre[:, :-sh])], dim=-1)
+        suf = torch.cat([mul(suf[:, :-sh], suf[:, sh:]), suf[:, n - sh :]], dim=-1)
+        sh *= 2
+    inv_total = _ladder_plain(pre[:, -1:], mp.modulus - 2, mp)
+    one = to_pieces(torch.as_tensor(ints_to_words([mp.mont_r]), device=xp.device))
+    excl_pre = torch.cat([one, pre[:, :-1]], dim=-1)
+    excl_suf = torch.cat([suf[:, 1:], one], dim=-1)
+    return mul(mul(excl_pre, excl_suf), inv_total)
+
+
+def mod_pow_plain(x: torch.Tensor, exponent: int, mp: ModParams) -> torch.Tensor:
+    """``x^e mod m``, the kernel's function in plain tensor code.  The ladder
+    runs lane by lane, except for the inverse exponent ``e = m - 2``: there
+    the batch shares one ladder (:func:`_batch_inverse_plain`).  Inverses
+    are unique, so both give the kernel's words."""
+    dev = x.device
+    zero = (x == 0).all(dim=0)
+    inverse = exponent == mp.modulus - 2
+    if inverse:
+        x = torch.where(zero[None], 1, x)
+    xp = mont_mul_p(to_pieces(x), mp.t("r2", dev), mp)
+    acc = _batch_inverse_plain(xp, mp) if inverse else _ladder_plain(xp, exponent, mp)
+    unit = to_pieces(torch.as_tensor(ints_to_words([1]), device=dev))
+    out = from_pieces(mont_mul_p(acc, unit, mp))
+    if inverse:
+        out = torch.where(zero[None], 0, out)
+    return out.contiguous()
+
+
+def mod_pow_static(x: torch.Tensor, exponent: int, mp: ModParams = FR) -> torch.Tensor:
+    """Batched ``x^exponent mod m`` over canonical ``(NW, n)`` words, for a
+    fixed exponent ``0 <= e < 2^256``; ``x = 0`` gives 0 (for ``e > 0``).
+    With ``e = m - 2`` it is the Fermat inverse."""
+    dev = _check(x, "mod_pow_static x", lead=(NW,))
+    if x.dim() != 2:
+        raise ValueError("mod_pow_static: expected (NW, n)")
+    if mp is not FP and mp is not FR:
+        raise ValueError("mod_pow_static: the kernel serves FP and FR only")
+    e = int(exponent)
+    if not 0 <= e < 1 << 256:
+        raise ValueError("mod_pow_static: exponent out of range")
+    if dev == "cpu":
+        return mod_pow_plain(x, e, mp)
+    out = torch.empty_like(x)
+    ew = [(e >> (64 * j)) & ((1 << 64) - 1) for j in range(4)]
+    _launch("mod_pow_static", x.data_ptr(), out.data_ptr(), x.shape[-1], *ew,
+            0 if mp is FP else 1)
+    return out

@@ -1,0 +1,20 @@
+"""Error classes of the port (the subset of the JAX package's taxonomy that
+the range prover and the proof codecs raise)."""
+
+from __future__ import annotations
+
+
+class BulletproofError(Exception):
+    """Base class for all errors raised by mpc_bulletproof_tpu_torch."""
+
+
+class ProofError(BulletproofError):
+    """Errors from proof creation or verification."""
+
+
+class FormatError(ProofError):
+    """Byte-level proof parsing failed."""
+
+
+class MPCError(BulletproofError):
+    """Errors of the party/dealer protocol (sizes, counts)."""
