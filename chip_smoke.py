@@ -6,20 +6,37 @@
 Phases, one JSON object per line on standard output:
 
 1. ``env``: torch and CUDA versions, the ``nvcc`` path, the card.
-2. ``build``: all five CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
+2. ``build``: all seven CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with each library's ptxas report.
-3. ``kernel``: each kernel against its plain PyTorch version on the card, at
-   the shapes of the aggregated m = 64 proof, with worst-case lanes
-   (identity, doubling, P + (-P), coordinates near p, 0 and m - 1 for the
-   inverse); equality is exact on the 64-bit words.  Times by CUDA events.
+3. ``kernel``: each kernel against its plain PyTorch version on the card:
+   ``point_add``, the inner scan and Horner at the shapes each of the
+   prove, verify and msm paths launches them with, the reduction and the
+   ladder at the aggregated m = 64 proof's, ``point_scan_steps`` (which no
+   path runs) at the prove scan's and the vector ops (no path either) at
+   (4, 4,096); worst-case lanes (identity, doubling, P + (-P), coordinates
+   near p, 0, 1, m - 1 and m - 2); equality is exact on the 64-bit words.
+   Times by CUDA events around 20 back-to-back calls (``kernel_ms``, host
+   launch gaps included), by torch.profiler's kernel rows (``device_ms``,
+   the kernel alone), and of the one plain call checked (``plain_ms``).
 4. ``main_path``: ``RangeProof.prove_multiple`` at (n, m) = (64, 64) on the
    pinned inputs; the digest of proof, commitments and transcript must equal
    the JAX package's (``mpc_bulletproof_tpu_torch/pinned.py``).  Launch
    counts are read around one proof, then the median of warm proofs.
    ``profile``: device time by kernel over one more warm proof
    (torch.profiler) and the device's idle share.
-5. the ``kernels`` summary, the card's ``nvidia-smi`` name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+5. ``verify``: ``verify_multiple`` of that proof; two tampered copies (t_x + 1,
+   L_1 swapped with R_1) must raise ``VerificationError``; ``verify_batch``
+   of it and a second proof must pass.  Launch counts around one
+   verification, then the median of warm ones, split into the host terms
+   and the MSM.
+6. ``msm``: ``msm_device`` at n = 2^20 on points P_i = k_i G made on the card;
+   the result must equal (sum_i s_i k_i) G.  Launch counts around one MSM,
+   the median of warm ones, peak memory, a device profile; then one MSM of
+   8,286 points (the (64, 64) verification's width), checked the same way.
+7. the ``kernels`` summary with launches per path, the card's
+   ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": {...}}``.
+
+Each path asserts that the kernels it must run were launched.
 
 Any failed phase raises and the script exits non-zero without the last
 line.  Without a CUDA device it exits 1 at once.  It imports nothing of JAX.
@@ -37,6 +54,11 @@ import time
 
 N_BITS, M_PARTIES = 64, 64
 WARM_PROOFS = 3
+WARM_VERIFIES = 3
+WARM_MSMS = 3
+MSM_LOG2N = 20
+VEC_N = 4096
+BASE_LANES = 1 << 16  # random points made with their own scaling; wider inputs draw from them
 
 # Bounds: NVIDIA's published H100 SXM rates (data sheet, dense, 700 W):
 # 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores.  There is
@@ -52,13 +74,25 @@ FP_MUL_OPS = 2 * 4 * (16 + 4)
 FR_MUL_OPS = 2 * 4 * (16 + 20)
 POINT_ADD_OPS = 14 * FP_MUL_OPS  # 12 products + 2 by the constant 3b
 POINT_BYTES = 3 * 4 * 8
+# A modular sum or difference: a 4-word add (sub) with carries and a 4-word
+# conditional subtract (add), 64-bit operations as two 32-bit ones.
+VEC_ADD_OPS = 2 * 2 * 4 * 2
 
 REPLACES = {
     "point_add": "mpc_bulletproof_tpu/ops/kernels.py:164",
     "point_scan_steps_inner": "mpc_bulletproof_tpu/ops/kernels.py:253",
+    "point_scan_steps": "mpc_bulletproof_tpu/ops/kernels.py:221",
     "point_horner_multi": "mpc_bulletproof_tpu/ops/kernels.py:329",
     "point_reduce": "mpc_bulletproof_tpu/ops/kernels.py:419",
     "mod_pow_static": "mpc_bulletproof_tpu/ops/kernels.py:497",
+    "vec2": "mpc_bulletproof_tpu/ops/kernels.py:541",
+}
+# The kernels each path must launch.
+PATH_KERNELS = {
+    "prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
+              "mod_pow_static"},
+    "verify": {"point_add", "point_scan_steps_inner", "point_horner_multi"},
+    "msm": {"point_add", "point_scan_steps_inner", "point_horner_multi"},
 }
 
 
@@ -93,6 +127,53 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float | None:
+    """Device time of one run of ``fn()`` from torch.profiler's kernel rows,
+    over ``reps`` runs after one warm-up.  Unlike :func:`cuda_ms` it leaves
+    out the gaps in which the device waits for the host to launch: at small
+    widths those are most of the events' time.  None if the profiler saw
+    no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA)
+    return total / reps / 1e3 if total > 0 else None
+
+
+def read_launches(path: str) -> dict:
+    """The launch counts since the last reset; raises if a kernel the path
+    must run was not launched."""
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    launches = dict(kernels.launches)
+    missing = sorted(k for k in PATH_KERNELS[path] if launches[k] == 0)
+    if missing:
+        raise RuntimeError(f"{path}: kernels of the path not launched: {missing} ({launches})")
+    return launches
+
+
+def host_ms(fn, reps: int) -> list[float]:
+    """Host-clock times of ``reps`` runs of ``fn()``, each ended by a synchronize."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
 def max_abs_err(a, b, word_dim: int) -> float:
     """Largest |a - b| over the canonical integers of two word tensors
     (the 64-bit words of an element on axis ``word_dim``)."""
@@ -109,13 +190,17 @@ def max_abs_err(a, b, word_dim: int) -> float:
 def random_points(pool, count: int, gen):
     """``count`` points drawn from ``pool`` with random projective scaling
     (some lanes by p - 1, so coordinates lie near p) and every 7th lane the
-    identity."""
+    identity.  Above ``BASE_LANES`` the lanes are drawn from that many such
+    points."""
     import torch
 
     from mpc_bulletproof_tpu_torch.constants import P
     from mpc_bulletproof_tpu_torch.ops import curve_t, limb
 
     dev = pool.device
+    if count > BASE_LANES:
+        base = random_points(pool, BASE_LANES, gen)
+        return base[:, :, torch.randint(0, BASE_LANES, (count,), generator=gen, device=dev)].contiguous()
     idx = torch.randint(0, pool.shape[-1], (count,), generator=gen, device=dev)
     pts = pool[:, :, idx]
     lam = torch.randint(-(2**63), 2**63 - 1, (4, count), generator=gen, device=dev)
@@ -127,8 +212,55 @@ def random_points(pool, count: int, gen):
     return curve_t._point_select(torch.arange(count, device=dev) % 7 == 3, ident, pts).contiguous()
 
 
-def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES) -> dict:
-    """Each kernel against its plain version at main-path shapes."""
+def verify_width(n_bits: int, m_parties: int) -> int:
+    """Points of the (n, m) mega-check: A, S, T_1, T_2, V.., B, B~, L.., R.., G, H."""
+    nm = n_bits * m_parties
+    return 4 + m_parties + 2 + 2 * (nm - 1).bit_length() + 2 * nm
+
+
+def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = MSM_LOG2N) -> dict:
+    """The shapes at which each path launches the point kernels.  prove: an
+    IPP round's L/R pair of split-table MSMs (``point_add`` at its chunk
+    lane scan, Horner over 8 windows of both MSMs); verify: the (n, m)
+    mega-check's MSM; msm: 2^log2n points (``point_add`` at the bucket
+    tails, the widest of those paths)."""
+    from mpc_bulletproof_tpu_torch.constants import FIELD_BITS
+    from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
+
+    nm = n_bits * m_parties
+    W, n = 2 * 8, msm_mod.SPLIT_CHUNKS * (nm + 1)
+    nt, T = msm_mod._chunk_shape(W, n)
+    shapes = {"prove": {"n": n, "c": msm_mod.SPLIT_WINDOW, "W": W, "nt": nt, "T": T,
+                        "add": (W, nt), "horner": (8, 2)}}
+    for path, n in (("verify", verify_width(n_bits, m_parties)), ("msm", 1 << log2n)):
+        c = msm_mod.select_window(n)
+        nw = -(-FIELD_BITS // c)
+        W = msm_mod._window_group(nw, n)
+        nt, T = msm_mod._chunk_shape(W, n)
+        shapes[path] = {"n": n, "c": c, "W": W, "nt": nt, "T": T, "add": (W, 1 << (c - 1)),
+                        "horner": (nw, 1)}
+    return shapes
+
+
+def timed_ms(fn):
+    """``fn()`` and its time in ms by CUDA events around that one call."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES,
+                  log2n: int = MSM_LOG2N) -> dict:
+    """Each kernel against its plain version: the point kernels at the
+    shapes each path launches them with (:func:`path_shapes`), the others
+    at the prove path's or their own.  Returns per kernel the prove (or
+    only) row, the rows of the other paths under ``at_paths``."""
     import torch
 
     from mpc_bulletproof_tpu_torch.constants import P, R
@@ -145,19 +277,56 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         host_pool.append(host_pool[-1] + host_pool[-1] + G)
     pool = torch.as_tensor(curve_t.points_from_host(host_pool), device=dev)
     nm = n_bits * m_parties
+    rows: dict = {}
 
-    # shapes of the main path
-    W_ipp, n_ipp = 2 * 8, msm_mod.SPLIT_CHUNKS * (nm + 1)        # L/R pair, 8 windows each
-    nt, T = msm_mod._chunk_shape(W_ipp, n_ipp)
-    add_n = W_ipp * nt                                           # chunk-offset lane scan
-    a = random_points(pool, add_n, gen)
-    b = random_points(pool, add_n, gen)
-    b[:, :, 1::5] = a[:, :, 1::5]                                # doubling
-    b[:, :, 2::5] = curve_t._point_neg(a[:, :, 2::5])            # P + (-P)
-    a, b = a.reshape(3, NW, W_ipp, nt).contiguous(), b.reshape(3, NW, W_ipp, nt).contiguous()
-    scan_x = random_points(pool, T * W_ipp * nt, gen).reshape(3, NW, T, W_ipp * nt).contiguous()
-    horner_w = random_points(pool, 8 * 2, gen).reshape(3, NW, 8, 2).permute(2, 0, 1, 3).contiguous()
+    def check(name, path, args, fn, plain, bnd, shape, word_dim=1):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        want, plain_ms = timed_ms(plain)
+        bound_ms, bound_by = bnd
+        res = {"phase": "kernel", "name": name, "path": path, "shape": shape, "tolerance": 0,
+               "equal": bool(torch.equal(got, want)), "max_abs_err": max_abs_err(got, want, word_dim),
+               "kernel_ms": cuda_ms(lambda: fn(*args), 20), "device_ms": device_ms(lambda: fn(*args), 20),
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
+        emit(res)
+        rows.setdefault(name, {})[path] = res
+
+    shapes = path_shapes(n_bits, m_parties, log2n)
+    for path, sh in shapes.items():
+        aw, an = sh["add"]
+        a = random_points(pool, aw * an, gen)
+        b = random_points(pool, aw * an, gen)
+        b[:, :, 1::5] = a[:, :, 1::5]                            # doubling
+        b[:, :, 2::5] = curve_t._point_neg(a[:, :, 2::5])        # P + (-P)
+        a, b = a.reshape(3, NW, aw, an).contiguous(), b.reshape(3, NW, aw, an).contiguous()
+        check("point_add", path, (a, b), kernels.point_add, lambda: curve_t._point_add(a, b),
+              bound(3 * POINT_BYTES * aw * an, aw * an * POINT_ADD_OPS), {"W": aw, "lanes": an})
+        del a, b
+        T, L = sh["T"], sh["W"] * sh["nt"]
+        scan_x = random_points(pool, T * L, gen).reshape(3, NW, T, L).contiguous()
+        check("point_scan_steps_inner", path, (scan_x,), kernels.point_scan_steps_inner,
+              lambda: kernels.point_scan_plain(scan_x),
+              bound(2 * POINT_BYTES * T * L, (T - 1) * L * POINT_ADD_OPS), {"T": T, "L": L})
+        del scan_x
+        nw, k = sh["horner"]
+        c = sh["c"]
+        horner_w = random_points(pool, nw * k, gen).reshape(3, NW, nw, k).permute(2, 0, 1, 3).contiguous()
+        check("point_horner_multi", path, (horner_w, c), kernels.point_horner_multi,
+              lambda: kernels.point_horner_plain(horner_w, c),
+              bound(POINT_BYTES * (nw * k + k), nw * (c + 1) * k * POINT_ADD_OPS),
+              {"nw": nw, "c": c, "k": k})
+        torch.cuda.empty_cache()
+
+    # no path launches point_scan_steps: the prove scan's shape, steps outside the words
+    T, L = shapes["prove"]["T"], shapes["prove"]["W"] * shapes["prove"]["nt"]
+    steps_x = random_points(pool, T * L, gen).reshape(3, T, NW, L).contiguous()
+    check("point_scan_steps", "none", (steps_x,), kernels.point_scan_steps,
+          lambda: kernels.point_scan_steps_plain(steps_x),
+          bound(2 * POINT_BYTES * T * L, (T - 1) * L * POINT_ADD_OPS), {"T": T, "L": L}, word_dim=2)
     reduce_x = random_points(pool, 2 * nm, gen)
+    check("point_reduce", "prove", (reduce_x,), kernels.point_reduce,
+          lambda: kernels.point_reduce_plain(reduce_x),
+          bound(POINT_BYTES * (2 * nm + 1), (2 * nm - 1) * POINT_ADD_OPS), {"n": 2 * nm})
 
     def scalars(count, mp):
         xs = torch.randint(-(2**63), 2**63 - 1, (NW, count), generator=gen, device=dev)
@@ -179,36 +348,6 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         prods = 2 + 14 + 4 * (ndig - 1) + nnz
         return k * prods * (FP_MUL_OPS if mp is FP else FR_MUL_OPS)
 
-    c = msm_mod.SPLIT_WINDOW
-    cases = {
-        "point_add": ((a, b), kernels.point_add, lambda: curve_t._point_add(a, b),
-                      bound(3 * POINT_BYTES * add_n, add_n * POINT_ADD_OPS),
-                      {"W": W_ipp, "nt": nt}),
-        "point_scan_steps_inner": ((scan_x,), kernels.point_scan_steps_inner,
-                                   lambda: kernels.point_scan_plain(scan_x),
-                                   bound(2 * POINT_BYTES * scan_x.shape[2] * scan_x.shape[3],
-                                         (T - 1) * W_ipp * nt * POINT_ADD_OPS),
-                                   {"T": T, "L": W_ipp * nt}),
-        "point_horner_multi": ((horner_w, c), kernels.point_horner_multi,
-                               lambda: kernels.point_horner_plain(horner_w, c),
-                               bound(POINT_BYTES * (8 * 2 + 2), 8 * (c + 1) * 2 * POINT_ADD_OPS),
-                               {"nw": 8, "c": c, "k": 2}),
-        "point_reduce": ((reduce_x,), kernels.point_reduce,
-                         lambda: kernels.point_reduce_plain(reduce_x),
-                         bound(POINT_BYTES * (2 * nm + 1), (2 * nm - 1) * POINT_ADD_OPS),
-                         {"n": 2 * nm}),
-    }
-    results = {}
-    for name, (args, fn, plain, (bound_ms, bound_by), shape) in cases.items():
-        got = fn(*args)
-        torch.cuda.synchronize()
-        want = plain()
-        res = {"phase": "kernel", "name": name, "shape": shape, "tolerance": 0,
-               "equal": bool(torch.equal(got, want)),
-               "max_abs_err": max_abs_err(got, want, 1), "kernel_ms": cuda_ms(lambda: fn(*args), 20),
-               "plain_ms": cuda_ms(plain, 1), "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
-        emit(res)
-        results[name] = res
     # mod_pow: every case must agree; the per-round inverse (FP, 2 lanes) is timed
     errs, equal = [], True
     for x, mp, e in pow_inputs:
@@ -218,18 +357,69 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         errs.append(max_abs_err(got, want, 0))
     x0, mp0, e0 = pow_inputs[0]
     bound_ms, bound_by = bound(2 * 32 * x0.shape[-1], pow_ops(x0.shape[-1], mp0, e0))
-    res = {"phase": "kernel", "name": "mod_pow_static",
+    res = {"phase": "kernel", "name": "mod_pow_static", "path": "prove",
            "shape": [{"n": k, "field": "FP" if mp is FP else "FR"} for k, mp, _ in pow_cases],
            "tolerance": 0, "equal": equal, "max_abs_err": max(errs),
            "kernel_ms": cuda_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20),
-           "plain_ms": cuda_ms(lambda: kernels.mod_pow_plain(x0, e0, mp0), 1),
+           "device_ms": device_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20),
+           "plain_ms": timed_ms(lambda: kernels.mod_pow_plain(x0, e0, mp0))[1],
            "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
     emit(res)
-    results["mod_pow_static"] = res
+    results = {"mod_pow_static": res, "vec2": check_vec_ops(gpu, scalars)}
+    for name, by_path in rows.items():
+        first = by_path.get("prove", next(iter(by_path.values())))
+        results[name] = {**first, "equal": all(r["equal"] for r in by_path.values()),
+                         "max_abs_err": max(r["max_abs_err"] for r in by_path.values()),
+                         "at_paths": {p: {k: r[k] for k in ("shape", "max_abs_err", "kernel_ms", "device_ms",
+                                                            "plain_ms", "bound_ms", "bound_by")}
+                                      for p, r in by_path.items()}}
     bad = [n for n, r in results.items() if not r["equal"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
     return results
+
+
+def check_vec_ops(gpu: str, scalars) -> dict:
+    """vec_mul, vec_add and vec_sub against their plain versions: FR at
+    (NW, VEC_N), FR with a width-1 b, and FP; the FR full-width case is
+    timed.  Returns the vec_mul row with every op's row under ``ops``."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import kernels, limb
+    from mpc_bulletproof_tpu_torch.ops.limb import FP, FR, NW
+
+    def pair(mp):
+        a, b = scalars(VEC_N, mp), scalars(VEC_N, mp)
+        b[:, :4] = b[:, :4].flip(-1).contiguous()         # edge lanes meet other edges
+        return a, b
+
+    (a, b), (fa, fb) = pair(FR), pair(FP)
+    b1 = b[:, 2:3].contiguous()                              # r - 1, broadcast
+    rows = {}
+    for op, fn, plain, ops in (("mul", kernels.vec_mul, limb.mod_mul, FR_MUL_OPS),
+                               ("add", kernels.vec_add, limb.mod_add, VEC_ADD_OPS),
+                               ("sub", kernels.vec_sub, limb.mod_sub, VEC_ADD_OPS)):
+        errs, equal = [], True
+        for x, y, mp in ((a, b, FR), (a, b1, FR), (fa, fb, FP)):
+            got = fn(x, y, mp)
+            torch.cuda.synchronize()
+            want = plain(x, y, mp)
+            equal &= bool(torch.equal(got, want))
+            errs.append(max_abs_err(got, want, 0))
+        bound_ms, bound_by = bound(3 * NW * 8 * VEC_N, ops * VEC_N)
+        rows[op] = {"phase": "kernel", "name": f"vec_{op}",
+                    "shape": [{"n": VEC_N, "field": "FR"}, {"n": VEC_N, "b": 1, "field": "FR"},
+                              {"n": VEC_N, "field": "FP"}],
+                    "tolerance": 0, "equal": equal, "max_abs_err": max(errs),
+                    "kernel_ms": cuda_ms(lambda: fn(a, b, FR), 20),
+                    "device_ms": device_ms(lambda: fn(a, b, FR), 20),
+                    "plain_ms": timed_ms(lambda: plain(a, b, FR))[1],
+                    "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
+        emit(rows[op])
+    return {**rows["mul"], "equal": all(r["equal"] for r in rows.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ops": {f"vec_{op}": {k: r[k] for k in ("max_abs_err", "kernel_ms", "device_ms", "plain_ms",
+                                                   "bound_ms", "bound_by")} for op, r in rows.items()}}
 
 
 def main_path(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES) -> dict:
@@ -250,7 +440,7 @@ def main_path(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES) -
         digest = pinned.proof_digest(proof, V, tr.state)
         if digest != want:
             raise RuntimeError(f"proof digest {digest} != pinned {want}")
-        return proof
+        return proof, V
 
     t0 = time.perf_counter()
     bp_gens = BulletproofGens(n_bits, m_parties, device=dev)
@@ -258,7 +448,7 @@ def main_path(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES) -
     torch.cuda.synchronize()
     gens_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    proof = prove()                       # cold: builds the device tables
+    proof, V = prove()                    # cold: builds the device tables
     cold_s = time.perf_counter() - t0
 
     torch.cuda.synchronize()
@@ -266,9 +456,7 @@ def main_path(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES) -
     t0 = time.perf_counter()
     prove()
     counted_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    if not all(v > 0 for v in launches.values()):
-        raise RuntimeError(f"a kernel of the main path was not launched: {launches}")
+    launches = read_launches("prove")
 
     warm = []
     torch.cuda.reset_peak_memory_stats()
@@ -282,14 +470,172 @@ def main_path(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES) -
            "us_per_proof_median": statistics.median(warm) * 1e6,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches, "gpu": gpu}
     emit(res)
-    emit(profile_proof(prove, res["us_per_proof_median"], gpu))
+    emit(profile_run(prove, res["us_per_proof_median"], gpu, "prove"))
+    res.update(proof=proof, V=V, values=values, bp_gens=bp_gens, pc_gens=pc_gens)
     return res
 
 
-def profile_proof(prove, warm_us: float, gpu: str) -> dict:
-    """Device time by kernel over one warm proof (torch.profiler).  The
-    profiler slows the host, so the idle share is also given against the
-    unprofiled median proof time."""
+def tampered(proof, case: str):
+    """A copy of ``proof`` with t_x + 1, or with L_1 and R_1 swapped."""
+    from mpc_bulletproof_tpu_torch import RangeProof
+
+    data = proof.to_bytes()
+    if case == "t_x+1":
+        t_x = (int.from_bytes(data[128:160], "big") + 1) % proof.t_x.MODULUS
+        data = data[:128] + t_x.to_bytes(32, "big") + data[160:]
+    else:
+        data = data[:224] + data[256:288] + data[224:256] + data[288:]
+    return RangeProof.from_bytes(data)
+
+
+def verify_phase(gpu: str, dev, mp: dict, n_bits: int = N_BITS) -> dict:
+    """Verify the main path's proof, reject two tampered copies, verify a
+    batch of two; launches and times of one verification."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch import (HashChainTranscript, RangeProof, Scalar,
+                                           VerificationError, pinned)
+    from mpc_bulletproof_tpu_torch.models.range_proof import _mega_check
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    proof, V = mp["proof"], mp["V"]
+    bp_gens, pc_gens = mp["bp_gens"], mp["pc_gens"]
+    m = len(V)
+    tr = lambda: HashChainTranscript(pinned.TRANSCRIPT_LABEL)
+    verify = lambda p=proof: p.verify_multiple(bp_gens, pc_gens, tr(), V, n_bits, device=dev)
+
+    t0 = time.perf_counter()
+    verify()                                                    # cold
+    cold_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    verify()
+    launches = read_launches("verify")
+
+    rejected = {}
+    for case in ("t_x+1", "swap_L1_R1"):
+        try:
+            verify(tampered(proof, case))
+        except VerificationError:
+            rejected[case] = True
+        else:
+            raise RuntimeError(f"verify accepted a tampered proof ({case})")
+
+    # a second, independent proof (fresh blinding) and the batch of both
+    values2 = [(v * 7919 + 13) % (1 << n_bits) for v in mp["values"]]
+    proof2, V2 = RangeProof.prove_multiple(bp_gens, pc_gens, HashChainTranscript(b"batch-2"), values2,
+                                           [Scalar.random() for _ in values2], n_bits, device=dev)
+    batch = lambda second: RangeProof.verify_batch(
+        [proof, second], bp_gens, pc_gens, [tr(), HashChainTranscript(b"batch-2")], [V, V2], n_bits,
+        device=dev)
+    batch(proof2)
+    try:
+        batch(tampered(proof2, "t_x+1"))
+    except VerificationError:
+        rejected["batch_t_x+1"] = True
+    else:
+        raise RuntimeError("verify_batch accepted a batch with a tampered proof")
+
+    # interleaved, so the split and the whole see the same host
+    (g, h), scalars, points = proof._verification_terms(bp_gens, pc_gens, tr(), V, n_bits)
+    warm, terms, msm = [], [], []
+    for _ in range(WARM_VERIFIES):
+        warm += host_ms(verify, 1)
+        terms += host_ms(lambda: proof._verification_terms(bp_gens, pc_gens, tr(), V, n_bits), 1)
+        msm += host_ms(lambda: _mega_check(bp_gens, n_bits, m, scalars + g + h, points, dev), 1)
+    res = {"phase": "verify", "n": n_bits, "m": m, "verified": True, "rejected": rejected,
+           "batch_of_2_verified": True, "msm_points": len(scalars) + len(g) + len(h),
+           "cold_verify_s": cold_s, "warm_verify_ms": warm, "host_terms_ms": terms, "msm_ms": msm,
+           "us_per_verify_median": statistics.median(warm) * 1e3,
+           "host_terms_us_median": statistics.median(terms) * 1e3,
+           "msm_us_median": statistics.median(msm) * 1e3,
+           "launches": launches, "gpu": gpu}
+    emit(res)
+    return res
+
+
+def msm_phase(gpu: str, dev, log2n: int = MSM_LOG2N) -> dict:
+    """``msm_device`` at n = 2^log2n on P_i = k_i G (fixed-base table on the
+    card); the answer is (sum s_i k_i mod r) G, one host multiplication."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.constants import R
+    from mpc_bulletproof_tpu_torch.generators import device_point_table
+    from mpc_bulletproof_tpu_torch.ops import curve_t, kernels, limb
+    from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
+    from mpc_bulletproof_tpu_torch.ops.curve import StarkPoint
+    from mpc_bulletproof_tpu_torch.ops.limb import NW
+
+    n = 1 << log2n
+    c = msm_mod.select_window(n)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+
+    def rand_scalars():
+        x = torch.randint(-(2**63), 2**63 - 1, (NW, n), generator=gen, device=dev)
+        x[3] &= (1 << 59) - 1                                       # < 2^251 < r
+        return x
+
+    k, s = rand_scalars(), rand_scalars()
+    k[:, 0] = 0                                                 # the identity point
+    k[:, 2] = k[:, 1]                                           # one point twice
+    edge = torch.as_tensor(limb.ints_to_words(
+        [0, R - 1, (1 << (c * (-(-252 // c) - 1))) - (1 << (c * (-(-252 // c) - 2))), 1]), device=dev)
+    s[:, 3:7] = edge                                            # 0, r - 1, top window on a borrow, 1
+    G = StarkPoint.generator()
+    table = device_point_table(G, dev)
+    chunks = []
+    for i in range(0, n, 1 << 17):                              # 2^17 points a call
+        kc = k[:, i : i + (1 << 17)]
+        off = torch.zeros(kc.shape[-1], dtype=torch.int64, device=dev)
+        chunks.append(msm_mod.fixed_commit(table, off, kc, off, torch.zeros_like(kc)))
+    pts = torch.cat(chunks, dim=-1).contiguous()
+    k_int, s_int = limb.words_to_ints(k), limb.words_to_ints(s)
+
+    def want(count):
+        return G.scalar_mul(sum(a * b for a, b in zip(s_int[:count], k_int[:count])) % R)
+
+    def run(count):
+        out = msm_mod.msm_device(s[:, :count].contiguous(), pts[..., :count].contiguous())
+        return curve_t.points_to_host(out[..., None])[0]
+
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = run(n)                                                # cold
+    cold_s = time.perf_counter() - t0
+    launches = read_launches("msm")
+    peak = torch.cuda.max_memory_allocated()
+    if got != want(n):
+        raise RuntimeError("msm_device at 2^%d disagrees with (sum s_i k_i) G" % log2n)
+    warm = host_ms(lambda: run(n), WARM_MSMS)
+    med = statistics.median(warm)
+
+    # the (64, 64) mega-check's width
+    n2 = verify_width(N_BITS, M_PARTIES)
+    kernels.reset_launches()
+    got2 = run(n2)
+    launches2 = dict(kernels.launches)
+    if got2 != want(n2):
+        raise RuntimeError(f"msm_device at {n2} disagrees with (sum s_i k_i) G")
+    warm2 = host_ms(lambda: run(n2), WARM_MSMS)
+    res = {"phase": "msm", "n": n, "c": c, "window_group": msm_mod._window_group(-(-252 // c), n), "equal": True,
+           "cold_s": cold_s, "warm_ms": warm, "ms_median": med, "mpoints_per_s": n / med / 1e3,
+           "peak_mem_bytes": peak, "mem_before_bytes": base_mem, "launches": launches,
+           "verify_width": {"n": n2, "c": msm_mod.select_window(n2), "equal": True, "warm_ms": warm2,
+                       "ms_median": statistics.median(warm2), "launches": launches2},
+           "gpu": gpu}
+    emit(res)
+    emit(profile_run(lambda: run(n), med * 1e3, gpu, "msm"))
+    return res
+
+
+def profile_run(fn, warm_us: float, gpu: str, what: str) -> dict:
+    """Device time by kernel over one warm run of ``fn`` (torch.profiler).
+    The profiler slows the host, so the idle share is also given against
+    the unprofiled median time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -297,7 +643,7 @@ def profile_proof(prove, warm_us: float, gpu: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prove()
+        fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     # device rows only: an aten op's self device time repeats its kernels'
@@ -305,12 +651,36 @@ def profile_proof(prove, warm_us: float, gpu: str) -> dict:
                    if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
                   reverse=True)
     busy_us = sum(r[0] for r in rows)
-    return {"phase": "profile", "wall_us": wall_us, "device_busy_us": busy_us if rows else None,
+    return {"phase": "profile", "of": what, "wall_us": wall_us, "device_busy_us": busy_us if rows else None,
             "device_idle_share": (1 - busy_us / wall_us) if rows else None,
             "device_idle_share_unprofiled": (1 - busy_us / warm_us) if rows else None,
             "device_launches": sum(r[2] for r in rows) if rows else None,
             "top": [{"name": k[:80], "device_us": us, "count": n} for us, k, n in rows[:25]],
             "gpu": gpu}
+
+
+def kernel_summary(checks: dict, paths: dict) -> list:
+    """The ``kernels`` line: one row per kernel, its launches per path."""
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    summary = []
+    for name, (source, _, _) in kernels.KERNELS.items():
+        r = checks[name]
+        per_path = {p: counts[name] for p, counts in paths.items()}
+        row = {
+            "name": name, "route": "cuda", "source": f"mpc_bulletproof_tpu_torch/csrc/{source}",
+            "replaces": REPLACES[name], "launches": sum(per_path.values()),
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "equal": r["equal"], "launches_per_path": per_path,
+            "on_paths": sorted(p for p, ks in PATH_KERNELS.items() if name in ks),
+        }
+        for extra in ("ops", "at_paths"):
+            if extra in r:
+                row[extra] = r[extra]
+        summary.append(row)
+    return summary
 
 
 def main() -> int:
@@ -337,17 +707,11 @@ def main() -> int:
     dev = torch.device("cuda")
     checks = check_kernels(gpu, dev)
     mp = main_path(gpu, dev)
+    vf = verify_phase(gpu, dev, mp)
+    ms = msm_phase(gpu, dev)
 
-    summary = []
-    for name, (source, _, _) in kernels.KERNELS.items():
-        r = checks[name]
-        summary.append({
-            "name": name, "route": "cuda", "source": f"mpc_bulletproof_tpu_torch/csrc/{source}",
-            "replaces": REPLACES[name], "launches": mp["launches"][name],
-            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "equal": r["equal"],
-        })
+    paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"]}
+    summary = kernel_summary(checks, paths)
     emit({"kernels": summary})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

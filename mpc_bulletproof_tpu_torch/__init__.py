@@ -1,8 +1,8 @@
 """mpc_bulletproof_tpu_torch: the PyTorch and CUDA port of mpc_bulletproof_tpu.
 
-The aggregated range prover runs on one NVIDIA Hopper card (H100): plain
-tensor code in PyTorch, the point and inverse work in hand-written CUDA
-kernels (``csrc/``, built with ``nvcc`` at first use).  Proofs are byte for
+The aggregated range prover and its verifier run on one NVIDIA Hopper card
+(H100): plain tensor code in PyTorch, the point and inverse work in
+hand-written CUDA kernels (``csrc/``, built with ``nvcc`` at first use).  Proofs are byte for
 byte the JAX package's.  The package imports torch and numpy, never jax and
 nothing of mpc_bulletproof_tpu; it keeps its own copy of the host layer
 (constants, scalars, points, keccak, transcript, generators).
@@ -14,6 +14,7 @@ from .models.range_proof import RangeProof
 from .ops.curve import StarkPoint
 from .ops.field import Scalar
 from .transcript import HashChainTranscript
+from .utils.errors import VerificationError
 
 __version__ = "0.1.0"
 
@@ -25,4 +26,5 @@ __all__ = [
     "RangeProof",
     "Scalar",
     "StarkPoint",
+    "VerificationError",
 ]

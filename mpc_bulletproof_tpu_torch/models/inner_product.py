@@ -1,5 +1,5 @@
-"""The Bulletproofs inner-product argument (IPP): proof type, codec and the
-fused prover body that runs every round on the card.
+"""The Bulletproofs inner-product argument (IPP): proof type, codec, the
+verifier, and the fused prover body that runs every round on the card.
 
 Per round, the cross inner products ``c_L = <a_L, b_R>``, ``c_R = <a_R, b_L>``
 and two (n+1)-term MSMs give L and R; the transcript absorbs them and
@@ -9,6 +9,9 @@ the generators: after the rounds so far, folded generator k is
 ``sum_{i mod cur == k} w_i G_i``, so L and R are MSMs over the original
 generators with coefficients ``w_i a_class(i)``, against the cached split
 table.  The proof is ``(L_1..L_k, R_1..R_k, a, b)``.
+
+The verifier replays the transcript on the host for the challenges, builds
+the scalar vectors there and checks one MSM (:func:`..ops.backend.dispatch_msm`).
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ import numpy as np
 import torch
 
 from ..constants import R, SCALAR_BYTES, STARK_POINT_BYTES
+from ..ops.backend import dispatch_msm
 from ..ops.curve import StarkPoint
 from ..ops.field import Scalar
-from ..utils.errors import FormatError
+from ..transcript import HashChainTranscript
+from ..utils.errors import FormatError, VerificationError
 
 
 @dataclass
@@ -30,6 +35,54 @@ class InnerProductProof:
     R_vec: list[StarkPoint]
     a: Scalar
     b: Scalar
+
+    def replay_challenges(self, n: int, transcript: HashChainTranscript):
+        """Replay the transcript's absorbs; returns the round challenges
+        ``u_j`` and their inverses."""
+        lg_n = len(self.L_vec)
+        if lg_n >= 32:
+            raise VerificationError("proof too large")
+        if n != (1 << lg_n):
+            raise VerificationError("length mismatch with proof")
+        transcript.innerproduct_domain_sep(n)
+        challenges = []
+        for L, R_pt in zip(self.L_vec, self.R_vec):
+            transcript.validate_and_append_point(b"L", L)
+            transcript.validate_and_append_point(b"R", R_pt)
+            challenges.append(transcript.challenge_scalar(b"u"))
+        return challenges, Scalar.batch_inverse(challenges)
+
+    def verification_scalars(self, n: int, transcript: HashChainTranscript):
+        """``(u_j^2, u_j^-2, s)`` for the parent protocol's single MSM:
+        ``s_0 = prod_j u_j^-1``, ``s_i = s_(i - 2^k) u_(lg n - k)^2`` with
+        ``k = floor(lg i)``."""
+        challenges, challenges_inv = self.replay_challenges(n, transcript)
+        lg_n = len(self.L_vec)
+        allinv = Scalar(1)
+        for ci in challenges_inv:
+            allinv = allinv * ci
+        u_sq = [u * u for u in challenges]
+        u_inv_sq = [u * u for u in challenges_inv]
+        s = [allinv]
+        for i in range(1, n):
+            lg_i = i.bit_length() - 1
+            s.append(s[i - (1 << lg_i)] * u_sq[(lg_n - 1) - lg_i])
+        return u_sq, u_inv_sq, s
+
+    def verify(self, n: int, transcript: HashChainTranscript, G_factors: list[Scalar],
+               H_factors: list[Scalar], P: StarkPoint, Q: StarkPoint, G: list[StarkPoint],
+               H: list[StarkPoint], *, device="cuda") -> None:
+        """Check ``P = <a s G_factors, G> + <b s^-1 H_factors, H> + a b Q
+        - sum_j (u_j^2 L_j + u_j^-2 R_j)`` by one MSM on ``device`` (the card
+        unless the caller asks for the CPU).  Raises :class:`VerificationError`."""
+        u_sq, u_inv_sq, s = self.verification_scalars(n, transcript)
+        g_a_s = [(self.a * s_i) * g_i for g_i, s_i in zip(G_factors, s)]
+        h_b_s = [(self.b * s_inv) * h_i for h_i, s_inv in zip(H_factors, reversed(s))]
+        scalars = ([self.a * self.b] + g_a_s + h_b_s + [-u for u in u_sq]
+                   + [-u for u in u_inv_sq])
+        points = [Q] + G + H + self.L_vec + self.R_vec
+        if dispatch_msm(scalars, points, device=device) != P:
+            raise VerificationError("inner product proof failed")
 
     def serialized_size(self) -> int:
         return len(self.L_vec) * 2 * STARK_POINT_BYTES + 2 * SCALAR_BYTES

@@ -1,5 +1,12 @@
-"""Aggregated 64-bit range proofs: the proof type, its codec, and the prover
-entry point, which runs the whole protocol on the card (:mod:`.fused_device`).
+"""Aggregated 64-bit range proofs: the proof type, its codec, the prover
+entry points, which run the whole protocol on the card
+(:mod:`.fused_device`), and the verifiers.
+
+Verification replays the transcript and derives the scalars on the host
+(:meth:`RangeProof._verification_terms`), then checks one MSM over
+``[A, S, T_1, T_2, V.., B, B~, L.., R..] + G + H`` on the card
+(:func:`...ops.backend.dispatch_msm`), with G and H from the device
+generator cache the prover fills.
 
 Proof layout: ``{A, S, T_1, T_2, t(x), ~t(x), ~e}`` followed by the IPP,
 ``(9 + 2 log2(n m)) * 32`` bytes; the same bytes as the JAX package's
@@ -8,15 +15,36 @@ Proof layout: ``{A, S, T_1, T_2, t(x), ~t(x), ~e}`` followed by the IPP,
 
 from __future__ import annotations
 
+import secrets
 from dataclasses import dataclass
+
+import torch
 
 from ...constants import SCALAR_BYTES, STARK_POINT_BYTES
 from ...generators import BulletproofGens, PedersenGens
+from ...ops import backend, curve_t
 from ...ops.curve import StarkPoint
-from ...ops.field import Scalar
+from ...ops.field import Scalar, sum_of_powers
 from ...transcript import HashChainTranscript
-from ...utils.errors import FormatError
+from ...utils.device import resolve_device
+from ...utils.errors import FormatError, VerificationError
 from ..inner_product import InnerProductProof
+
+
+def _mega_check(bp_gens: BulletproofGens, n: int, m: int, scalars, points, device) -> StarkPoint:
+    """One MSM of ``scalars`` over ``points + G(n, m) + H(n, m)``.  The route
+    is chosen by size before anything moves: below ``_DEVICE_MIN`` points the
+    host Pippenger over the host generators, the card untouched; else the
+    host points go to the device once and meet the cached generator tensor."""
+    from .fused_device import _device_gens
+
+    dev = resolve_device(device)
+    if len(scalars) < backend._DEVICE_MIN:
+        pts = list(points) + bp_gens.G(n, m) + bp_gens.H(n, m)
+    else:
+        G, H = _device_gens(bp_gens, n, m, dev)
+        pts = torch.cat([torch.as_tensor(curve_t.points_from_host(points), device=dev), G, H], dim=-1)
+    return backend.dispatch_msm(scalars, pts, device=dev)
 
 
 @dataclass
@@ -50,6 +78,192 @@ class RangeProof:
 
         return prove_multiple_device(bp_gens, pc_gens, transcript, values, blindings, n,
                                      device=device, rng_bytes=rng_bytes)
+
+    @staticmethod
+    def prove_single(
+        bp_gens: BulletproofGens,
+        pc_gens: PedersenGens,
+        transcript: HashChainTranscript,
+        v: int,
+        v_blinding: Scalar,
+        n: int,
+        *,
+        device="cuda",
+        rng_bytes=None,
+    ) -> tuple["RangeProof", StarkPoint]:
+        """Proof that ``v`` is in ``[0, 2^n)``: :meth:`prove_multiple` with
+        one party."""
+        proof, comms = RangeProof.prove_multiple(bp_gens, pc_gens, transcript, [v], [v_blinding], n,
+                                                 device=device, rng_bytes=rng_bytes)
+        return proof, comms[0]
+
+    # ------------------------------------------------------------------
+    # verification
+    # ------------------------------------------------------------------
+
+    def verify_multiple(
+        self,
+        bp_gens: BulletproofGens,
+        pc_gens: PedersenGens,
+        transcript: HashChainTranscript,
+        value_commitments: list[StarkPoint],
+        n: int,
+        *,
+        device="cuda",
+    ) -> None:
+        """Aggregated verification by one MSM on ``device`` (the card unless
+        the caller asks for the CPU).  Raises :class:`VerificationError`."""
+        dev = resolve_device(device)
+        (g_scalars, h_scalars), scalars, points = self._verification_terms(
+            bp_gens, pc_gens, transcript, value_commitments, n)
+        mega = _mega_check(bp_gens, n, len(value_commitments), scalars + g_scalars + h_scalars,
+                           points, dev)
+        if not mega.is_identity():
+            raise VerificationError("range proof failed verification")
+
+    def _verification_terms(
+        self,
+        bp_gens: BulletproofGens,
+        pc_gens: PedersenGens,
+        transcript: HashChainTranscript,
+        value_commitments: list[StarkPoint],
+        n: int,
+    ):
+        """The verification MSM's scalars, on the host.
+
+        Returns ``((g_scalars, h_scalars), scalars, points)``: ints mod r,
+        the g/h lists aligned with the aggregated generator vectors (so
+        :meth:`verify_batch` can merge them across proofs), ``scalars`` and
+        ``points`` in the order ``[A, S, T_1, T_2, V.., B, B~, L.., R..]``."""
+        m = len(value_commitments)
+        if n <= 0 or (n & (n - 1)) or bp_gens.gens_capacity < n:
+            raise VerificationError("invalid bitsize")
+        if m <= 0 or (m & (m - 1)) or bp_gens.party_capacity < m:
+            raise VerificationError("invalid aggregation size")
+
+        t = transcript
+        t.rangeproof_domain_sep(n, m)
+        for V in value_commitments:
+            t.append_point(b"V", V)
+        t.validate_and_append_point(b"A", self.A)
+        t.validate_and_append_point(b"S", self.S)
+        y = t.challenge_scalar(b"y")
+        z = t.challenge_scalar(b"z")
+        t.validate_and_append_point(b"T_1", self.T_1)
+        t.validate_and_append_point(b"T_2", self.T_2)
+        x = t.challenge_scalar(b"x")
+        t.append_scalar(b"t_x", self.t_x)
+        t.append_scalar(b"t_x_blinding", self.t_x_blinding)
+        t.append_scalar(b"e_blinding", self.e_blinding)
+        w = t.challenge_scalar(b"w")
+
+        MOD = Scalar.MODULUS
+        nm = n * m
+        a, b = int(self.ipp_proof.a), int(self.ipp_proof.b)
+        yv, zv, xv, wv = int(y), int(z), int(x), int(w)
+        t_x, t_x_blinding, e_blinding = int(self.t_x), int(self.t_x_blinding), int(self.e_blinding)
+        zz = zv * zv % MOD
+
+        u_sq, u_inv_sq, s_sc = self.ipp_proof.verification_scalars(nm, t)
+        s = [int(v) for v in s_sc]
+        c = int(t.challenge_scalar(b"c"))  # weight of the second equation
+
+        y_inv = pow(yv, -1, MOD)
+        y_inv_pows = [1] * nm
+        for i in range(1, nm):
+            y_inv_pows[i] = y_inv_pows[i - 1] * y_inv % MOD
+        z_and_2 = [0] * nm                # z^(2 + j) 2^i, party-major
+        exp_z = zz
+        for j in range(m):
+            exp_2 = exp_z
+            for i in range(n):
+                z_and_2[j * n + i] = exp_2
+                exp_2 = exp_2 * 2 % MOD
+            exp_z = exp_z * zv % MOD
+        g_scalars = [(-zv - a * s_i) % MOD for s_i in s]
+        h_scalars = [(zv + y_inv_pows[i] * (z_and_2[i] - b * s[nm - 1 - i])) % MOD
+                     for i in range(nm)]
+
+        # delta(y, z) = (z - z^2) <1, y^nm> - sum_j z^(j + 3) <1, 2^n>
+        sum_y = int(sum_of_powers(y, nm))
+        sum_z = int(sum_of_powers(z, m))
+        delta = ((zv - zz) * sum_y - zv * zz % MOD * sum_z % MOD * ((1 << n) - 1)) % MOD
+        basepoint_scalar = (wv * (t_x - a * b) + c * (delta - t_x)) % MOD
+        value_commitment_scalars = []
+        exp_z = c * zz % MOD
+        for _ in range(m):
+            value_commitment_scalars.append(exp_z)
+            exp_z = exp_z * zv % MOD
+
+        scalars = ([1, xv, c * xv % MOD, c * xv % MOD * xv % MOD] + value_commitment_scalars
+                   + [basepoint_scalar, (-e_blinding - c * t_x_blinding) % MOD]
+                   + [int(u) for u in u_sq] + [int(u) for u in u_inv_sq])
+        points = ([self.A, self.S, self.T_1, self.T_2] + list(value_commitments)
+                  + [pc_gens.B, pc_gens.B_blinding] + self.ipp_proof.L_vec + self.ipp_proof.R_vec)
+        return (g_scalars, h_scalars), scalars, points
+
+    def verify_single(
+        self,
+        bp_gens: BulletproofGens,
+        pc_gens: PedersenGens,
+        transcript: HashChainTranscript,
+        V: StarkPoint,
+        n: int,
+        *,
+        device="cuda",
+    ) -> None:
+        self.verify_multiple(bp_gens, pc_gens, transcript, [V], n, device=device)
+
+    @staticmethod
+    def verify_batch(
+        proofs: list["RangeProof"],
+        bp_gens: BulletproofGens,
+        pc_gens: PedersenGens,
+        transcripts: list[HashChainTranscript],
+        commitment_lists: list[list[StarkPoint]],
+        n: int,
+        *,
+        device="cuda",
+    ) -> None:
+        """Verify many proofs of one aggregation size by ONE MSM: each
+        proof's equation is weighted by an independent random scalar ρ
+        (``secrets``) and the shared generators' coefficients collapse.
+        Raises :class:`VerificationError` if the batch fails."""
+        if not (len(proofs) == len(transcripts) == len(commitment_lists)):
+            raise VerificationError("batch length mismatch")
+        if not proofs:
+            return
+        dev = resolve_device(device)
+        m = len(commitment_lists[0])
+        if any(len(cl) != m for cl in commitment_lists):
+            raise VerificationError("batch requires a uniform aggregation size")
+
+        MOD = Scalar.MODULUS
+        nm = n * m
+        g_acc, h_acc = [0] * nm, [0] * nm
+        b_acc = bb_acc = 0
+        uniq_scalars: list[int] = []
+        uniq_points: list[StarkPoint] = []
+        b_idx = 4 + m                     # [A, S, T1, T2, V.., B, B~, L.., R..]
+        for proof, transcript, comms in zip(proofs, transcripts, commitment_lists):
+            (g_sc, h_sc), scalars, points = proof._verification_terms(
+                bp_gens, pc_gens, transcript, comms, n)
+            rho = int.from_bytes(secrets.token_bytes(32), "big") % MOD
+            for i in range(nm):
+                g_acc[i] = (g_acc[i] + rho * g_sc[i]) % MOD
+                h_acc[i] = (h_acc[i] + rho * h_sc[i]) % MOD
+            for idx, (sc, pt) in enumerate(zip(scalars, points)):
+                if idx == b_idx:
+                    b_acc = (b_acc + rho * sc) % MOD
+                elif idx == b_idx + 1:
+                    bb_acc = (bb_acc + rho * sc) % MOD
+                else:
+                    uniq_scalars.append(rho * sc % MOD)
+                    uniq_points.append(pt)
+        mega = _mega_check(bp_gens, n, m, uniq_scalars + [b_acc, bb_acc] + g_acc + h_acc,
+                           uniq_points + [pc_gens.B, pc_gens.B_blinding], dev)
+        if not mega.is_identity():
+            raise VerificationError("batch verification failed")
 
     def serialized_size(self) -> int:
         return 4 * STARK_POINT_BYTES + 3 * SCALAR_BYTES + self.ipp_proof.serialized_size()

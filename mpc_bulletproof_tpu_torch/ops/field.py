@@ -9,6 +9,7 @@ scalars) and as the golden model of the tensor field layer
 from __future__ import annotations
 
 import secrets
+from typing import Sequence
 
 from ..constants import R, SCALAR_BYTES
 
@@ -100,3 +101,47 @@ class Scalar:
 
     def __int__(self) -> int:
         return self.value
+
+    # -- batch helpers ------------------------------------------------------
+
+    @staticmethod
+    def batch_inverse(values: Sequence["Scalar"]) -> list["Scalar"]:
+        """Montgomery's trick: the inverses of ``values`` with one field
+        inversion.  A zero input raises ``ValueError``."""
+        n = len(values)
+        if n == 0:
+            return []
+        prefix = [0] * n
+        acc = 1
+        for i, v in enumerate(values):
+            acc = acc * v.value % R
+            prefix[i] = acc
+        inv = pow(acc, -1, R)
+        out: list[Scalar] = [Scalar(0)] * n
+        for i in range(n - 1, 0, -1):
+            out[i] = Scalar(prefix[i - 1] * inv)
+            inv = inv * values[i].value % R
+        out[0] = Scalar(inv)
+        return out
+
+
+def sum_of_powers(x: Scalar, n: int) -> Scalar:
+    """``1 + x + ... + x^(n-1)``; by the doubling recurrence when ``n`` is a
+    power of two."""
+    if n == 0:
+        return Scalar(0)
+    if n & (n - 1):
+        acc, cur = 0, 1
+        for _ in range(n):
+            acc += cur
+            cur = cur * x.value % R
+        return Scalar(acc)
+    if n == 1:
+        return Scalar(1)
+    result = (1 + x.value) % R
+    factor = x.value
+    while n > 2:
+        factor = factor * factor % R
+        result = (result + factor * result) % R
+        n //= 2
+    return Scalar(result)

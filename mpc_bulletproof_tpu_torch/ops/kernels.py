@@ -1,17 +1,24 @@
-"""The prover's hand-written CUDA kernels, their wrappers and their plain versions.
+"""The hand-written CUDA kernels, their wrappers and their plain versions.
 
-Five kernels carry the fused range prover's point and inverse work.  Each
+Seven kernels carry the point, inverse and vector field work.  Each
 replaces one Pallas kernel of ``mpc_bulletproof_tpu/ops/kernels.py``:
 
-=========================  ===================================  =======================
-wrapper                    CUDA source (``csrc/``)              replaces
-=========================  ===================================  =======================
-``point_add``              ``point_add.cu``                     ``point_add``
-``point_scan_steps_inner`` ``point_scan.cu``                    ``point_scan_steps_inner``
-``point_horner_multi``     ``point_horner.cu``                  ``point_horner_multi``
-``point_reduce``           ``point_reduce.cu``                  ``point_reduce``
-``mod_pow_static``         ``mod_pow.cu``                       ``mod_pow_static``
-=========================  ===================================  =======================
+==============================  =======================  =======================
+wrapper                         CUDA source (``csrc/``)  replaces
+==============================  =======================  =======================
+``point_add``                   ``point_add.cu``         ``point_add``
+``point_scan_steps_inner``      ``point_scan.cu``        ``point_scan_steps_inner``
+``point_scan_steps``            ``point_scan.cu``        ``point_scan_steps``
+``point_horner_multi``          ``point_horner.cu``      ``point_horner_multi``
+``point_reduce``                ``point_reduce.cu``      ``point_reduce``
+``mod_pow_static``              ``mod_pow.cu``           ``mod_pow_static``
+``vec_mul/vec_add/vec_sub``     ``vec2.cu``              ``_vec2``
+==============================  =======================  =======================
+
+The prover and the verifiers launch ``point_add``, ``point_scan_steps_inner``,
+``point_horner_multi``, ``point_reduce`` and ``mod_pow_static``;
+``point_scan_steps`` and the vector ops serve callers of the library (the
+JAX package calls them only from its benches).
 
 Every wrapper checks dtype, shape and contiguity the same way for every
 device.  For a tensor on the CPU it runs the plain PyTorch version beside
@@ -37,7 +44,8 @@ from pathlib import Path
 import torch
 
 from .curve_t import _point_add, identity
-from .limb import FP, FR, NW, ModParams, from_pieces, ints_to_words, mont_mul_p, to_pieces
+from .limb import (FP, FR, NW, ModParams, from_pieces, ints_to_words, mod_add, mod_mul, mod_sub,
+                   mont_mul_p, to_pieces)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -51,9 +59,11 @@ _P, _LL, _I, _U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uin
 KERNELS = {
     "point_add": ("point_add.cu", "bp_point_add", [_P, _P, _P, _LL, _P]),
     "point_scan_steps_inner": ("point_scan.cu", "bp_point_scan", [_P, _P, _I, _LL, _P]),
+    "point_scan_steps": ("point_scan.cu", "bp_point_scan_steps", [_P, _P, _I, _LL, _P]),
     "point_horner_multi": ("point_horner.cu", "bp_point_horner", [_P, _P, _I, _I, _LL, _P]),
     "point_reduce": ("point_reduce.cu", "bp_point_reduce", [_P, _P, _LL, _P]),
     "mod_pow_static": ("mod_pow.cu", "bp_mod_pow", [_P, _P, _LL, _U, _U, _U, _U, _I, _P]),
+    "vec2": ("vec2.cu", "bp_vec2", [_P, _P, _P, _LL, _LL, _I, _I, _P]),
 }
 
 # Launches per kernel since the last reset_launches(); only a launch of the
@@ -85,25 +95,26 @@ def _lib_path(source: str) -> Path:
 
 def build() -> dict:
     """Compile every kernel source that has no library yet, one ``nvcc`` per
-    source, all started together.  Returns ``{name: (library path, ptxas
-    report)}``; raises with the compiler's output if any build fails."""
+    source (two kernels may share one), all started together.  Returns
+    ``{name: (library path, ptxas report)}``; raises with the compiler's
+    output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (source, _, _) in KERNELS.items():
+    for source in sorted({source for source, _, _ in KERNELS.values()}):
         lib = _lib_path(source)
         if not lib.exists():
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True), tmp, lib)
+            procs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True), tmp, lib)
     failed = []
-    for name, (proc, tmp, lib) in procs.items():
+    for source, (proc, tmp, lib) in procs.items():
         out, _ = proc.communicate()
         lib.with_suffix(".log").write_text(out)
         if proc.returncode == 0:
             os.replace(tmp, lib)
         else:
-            failed.append(f"{name}:\n{out}")
+            failed.append(f"{source}:\n{out}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     report = {}
@@ -192,6 +203,24 @@ def point_scan_steps_inner(x: torch.Tensor) -> torch.Tensor:
         return point_scan_plain(x)
     out = torch.empty_like(x)
     _launch("point_scan_steps_inner", x.data_ptr(), out.data_ptr(), x.shape[2], x.shape[3])
+    return out
+
+
+def point_scan_steps_plain(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along axis 1 of ``(3, T, NW, L)``, step by step."""
+    return point_scan_plain(x.transpose(1, 2)).transpose(1, 2).contiguous()
+
+
+def point_scan_steps(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix point-sum along the step axis T of a ``(3, T, NW, L)``
+    batch (the step axis outside the words); the L lanes are independent."""
+    dev = _check(x, "point_scan_steps x")
+    if x.dim() != 4 or x.shape[0] != 3 or x.shape[2] != NW:
+        raise ValueError("point_scan_steps: expected (3, T, NW, L)")
+    if dev == "cpu":
+        return point_scan_steps_plain(x)
+    out = torch.empty_like(x)
+    _launch("point_scan_steps", x.data_ptr(), out.data_ptr(), x.shape[1], x.shape[3])
     return out
 
 
@@ -346,3 +375,44 @@ def mod_pow_static(x: torch.Tensor, exponent: int, mp: ModParams = FR) -> torch.
     _launch("mod_pow_static", x.data_ptr(), out.data_ptr(), x.shape[-1], *ew,
             0 if mp is FP else 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# vec_mul / vec_add / vec_sub
+# ---------------------------------------------------------------------------
+
+_VEC_OPS = {"mul": (0, mod_mul), "add": (1, mod_add), "sub": (2, mod_sub)}
+
+
+def _vec2(op: str, a: torch.Tensor, b: torch.Tensor, mp: ModParams) -> torch.Tensor:
+    """Elementwise ``a op b mod m`` over canonical standard-form ``(NW, n)``
+    words; a ``(NW, 1)`` operand ``b`` is broadcast over the lanes."""
+    code, plain = _VEC_OPS[op]
+    dev = _check(a, f"vec_{op} a", lead=(NW,))
+    if _check(b, f"vec_{op} b", lead=(NW,)) != dev or b.device != a.device:
+        raise ValueError(f"vec_{op}: operands on different devices")
+    if a.dim() != 2 or b.dim() != 2 or b.shape[-1] not in (a.shape[-1], 1):
+        raise ValueError(f"vec_{op}: expected (NW, n) and (NW, n) or (NW, 1)")
+    if mp is not FP and mp is not FR:
+        raise ValueError(f"vec_{op}: the kernel serves FP and FR only")
+    if dev == "cpu":
+        return plain(a, b, mp).contiguous()
+    out = torch.empty_like(a)
+    _launch("vec2", a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[-1], b.shape[-1], code,
+            0 if mp is FP else 1)
+    return out
+
+
+def vec_mul(a: torch.Tensor, b: torch.Tensor, mp: ModParams = FR) -> torch.Tensor:
+    """``(a * b) mod m`` lane by lane."""
+    return _vec2("mul", a, b, mp)
+
+
+def vec_add(a: torch.Tensor, b: torch.Tensor, mp: ModParams = FR) -> torch.Tensor:
+    """``(a + b) mod m`` lane by lane."""
+    return _vec2("add", a, b, mp)
+
+
+def vec_sub(a: torch.Tensor, b: torch.Tensor, mp: ModParams = FR) -> torch.Tensor:
+    """``(a - b) mod m`` lane by lane."""
+    return _vec2("sub", a, b, mp)

@@ -1,4 +1,12 @@
-"""The prover's multi-scalar multiplications: split-table and fixed-base.
+"""Multi-scalar multiplications: variable-base, split-table and fixed-base.
+
+* **Variable-base Pippenger** (:func:`msm_device`, :func:`msm_host_points`):
+  the verifiers' MSMs over arbitrary points (the range-proof mega-check,
+  the IPP check).  252-bit scalars in signed c-bit windows; the points are
+  sorted by |digit| per window (``torch.sort(stable=True)``, the sign
+  gathered beside), and the windows go through the bucket phase below in
+  groups (:func:`_window_group`) that gather their records from ``[points
+  | identity]`` straight into the scan layout (:func:`_msm_device_impl`).
 
 Every MSM of the fused range prover hits FIXED bases: the G/H generator
 chains and the Pedersen bases.  So two precomputed tables serve them all.
@@ -30,7 +38,8 @@ import numpy as np
 import torch
 
 from ..constants import FIELD_BITS
-from . import kernels
+from ..utils.device import resolve_device
+from . import curve_t, kernels
 from .curve_t import _point_neg, _point_select, identity, to_affine_mont
 from .limb import NW
 
@@ -95,6 +104,22 @@ def _signed_digits(scalars: torch.Tensor, c: int, bits: int = FIELD_BITS) -> tor
             carry = (d > half).long()
             rows.append(d - carry * full)
     return torch.stack(rows)
+
+
+def _sort_digits(digits: torch.Tensor):
+    """Stable sort of each window's ``|digit|``: ``(nw, n)`` signed digits ->
+    ``(sorted |digit|, source order, sign in sorted order)``."""
+    d_sorted, order = torch.sort(digits.abs(), dim=-1, stable=True)
+    return d_sorted, order, torch.gather((digits < 0).long(), 1, order)
+
+
+def _boundaries(d_sorted: torch.Tensor, c: int) -> torch.Tensor:
+    """``(W, n)`` sorted ``|digit|`` -> ``(W, B - 1)`` sorted position of the
+    last digit ``<= t`` for ``t = 0 .. B - 2`` (-1 when there is none)."""
+    B = (1 << (c - 1)) + 1
+    targets = torch.arange(0, B - 1, dtype=torch.int64, device=d_sorted.device)
+    return torch.searchsorted(d_sorted.contiguous(), targets.expand(d_sorted.shape[0], -1).contiguous(),
+                              right=True) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +213,12 @@ def _windowed_bucket_sums_prelaid(x: torch.Tensor, pos: torch.Tensor, W: int, nt
     return _bucket_sums_tail(_add(within, offsel), total, valid)
 
 
+def _horner_windows(window_sums: torch.Tensor, c: int) -> torch.Tensor:
+    """``(nw, 3, NW)`` window sums -> ``(3, NW)``: c doublings and one add per
+    window, in one Horner kernel."""
+    return kernels.point_horner_multi(window_sums[..., None].contiguous(), c)[..., 0]
+
+
 def _bucket_sums_fetch_prelaid(table, ident_idx: int, rec_g, neg_g, pos, W: int, n: int):
     """Gather table records straight into the scan layout: the int64 index
     and sign arrays are transposed, never the point tensor."""
@@ -201,6 +232,77 @@ def _bucket_sums_fetch_prelaid(table, ident_idx: int, rec_g, neg_g, pos, W: int,
     pts = _fetch(table, rec_t)
     pts = _point_select(neg_t != 0, _point_neg(pts), pts)
     return _windowed_bucket_sums_prelaid(pts.reshape(3, NW, T, W * nt), pos, W, nt, T)
+
+
+# ---------------------------------------------------------------------------
+# variable-base MSMs
+# ---------------------------------------------------------------------------
+
+def select_window(n: int, bits: int = FIELD_BITS) -> int:
+    """Signed-digit window size for an ``n``-point MSM of ``bits``-bit
+    scalars: c = 9 for the 64-bit split chunks, else the c in 5..16 that
+    minimizes ``windows (n + 2^c)`` and whose top window stays in the
+    signed bucket range.  The JAX package's choice, kept so both packages
+    run the same windows."""
+    if bits == SPLIT_CHUNK_BITS:
+        return SPLIT_WINDOW
+    best_c, best_cost = 5, None
+    for c in range(5, 17):
+        top_width = bits - (bits // c) * c if bits % c else c
+        if top_width > c - 2:
+            continue
+        cost = -(-bits // c) * (n + (1 << c))
+        if best_cost is None or cost < best_cost:
+            best_c, best_cost = c, cost
+    return best_c
+
+
+def _msm_device_impl(scalars: torch.Tensor, points: torch.Tensor, c: int | None = None,
+                     bits: int = FIELD_BITS) -> torch.Tensor:
+    """MSM of ``(NW, n)`` scalars over ``(3, NW, n)`` points -> ``(3, NW)``.
+
+    One sort of every window's ``|digit|``, then per group of
+    :func:`_window_group` windows the records come from ``[points |
+    identity]`` straight into the scan layout, padded with the identity."""
+    n = scalars.shape[-1]
+    if c is None:
+        c = select_window(n, bits)
+    d_sorted, order, negs = _sort_digits(_signed_digits(scalars, c, bits))
+    nw = d_sorted.shape[0]
+    wg = _window_group(nw, n)
+    table = torch.cat([points, identity((1,), points.device)], dim=-1)
+    wins = [_bucket_sums_fetch_prelaid(table, n, order[g : g + wg], negs[g : g + wg],
+                                       _boundaries(d_sorted[g : g + wg], c), wg, n)
+            for g in range(0, nw, wg)]
+    return _horner_windows(torch.cat(wins), c)
+
+
+def msm_device(scalars: torch.Tensor, points: torch.Tensor, c: int | None = None) -> torch.Tensor:
+    """``sum_i s_i P_i`` over ``(NW, n)`` canonical scalars (< 2^252) and
+    ``(3, NW, n)`` projective points on one device -> ``(3, NW)``."""
+    if scalars.dim() != 2 or scalars.shape[0] != NW:
+        raise ValueError("msm_device: expected (NW, n) scalars")
+    if tuple(points.shape) != (3, NW, scalars.shape[-1]):
+        raise ValueError("msm_device: expected (3, NW, n) points matching the scalars")
+    if points.device != scalars.device:
+        raise ValueError("msm_device: scalars and points on different devices")
+    if scalars.shape[-1] == 0:
+        return identity((), points.device).contiguous()
+    return _msm_device_impl(scalars, points.contiguous(), c)
+
+
+def msm_host_points(scalars, points, c: int | None = None, *, device="cuda"):
+    """Host scalars (``Scalar`` or ints in ``[0, r)``) and host ``StarkPoint``s
+    -> ``StarkPoint``, computed by :func:`msm_device` on ``device`` (the card
+    unless the caller asks for the CPU).  ``points`` may also be a ``(3, NW,
+    n)`` point tensor already on the device (cached generators)."""
+    dev = resolve_device(device)
+    s = torch.as_tensor(curve_t.scalars_from_host(scalars), device=dev)
+    if isinstance(points, torch.Tensor):
+        p = points.to(dev)
+    else:
+        p = torch.as_tensor(curve_t.points_from_host(points), device=dev)
+    return curve_t.points_to_host(msm_device(s, p, c)[..., None])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -253,19 +355,15 @@ def _msm_multi_table_impl(parts, table: torch.Tensor, c: int,
     n = parts[0][0].shape[-1]
     digits = torch.cat([_signed_digits(s, c, bits) for s, _ in parts])  # (k nw, n)
     nw = digits.shape[0] // k
-    d_sorted, order = torch.sort(digits.abs(), dim=-1, stable=True)
-    negs = torch.gather((digits < 0).long(), 1, order)
+    d_sorted, order, negs = _sort_digits(digits)
     rec_stack = torch.stack([r for _, r in parts])                        # (k, n)
     recs = torch.gather(rec_stack.repeat_interleave(nw, dim=0), 1, order)
 
     W = k * nw
     wg = _window_group(W, n)
-    B = (1 << (c - 1)) + 1
-    targets = torch.arange(0, B - 1, dtype=torch.int64, device=digits.device)
     wins = []
     for g in range(0, W, wg):
-        d_g = d_sorted[g : g + wg]
-        pos = torch.searchsorted(d_g, targets.expand(wg, -1).contiguous(), right=True) - 1
+        pos = _boundaries(d_sorted[g : g + wg], c)
         wins.append(_bucket_sums_fetch_prelaid(
             table, table.shape[-1] - 1, recs[g : g + wg], negs[g : g + wg], pos, wg, n))
     wins = torch.cat(wins)                                                # (W, 3, NW)

@@ -18,6 +18,7 @@ from __future__ import annotations
 from .ops.curve import StarkPoint, stark_point_to_transcript_bytes
 from .ops.field import Scalar
 from .ops.keccak import keccak256, pad_label
+from .utils.errors import ProofError
 
 
 def hash_to_scalar(low_u256: bytes) -> Scalar:
@@ -50,11 +51,21 @@ class HashChainTranscript:
         self.append_u64(b"n", n)
         self.append_u64(b"m", m)
 
+    def innerproduct_domain_sep(self, n: int) -> None:
+        self.append_message(b"dom-sep", pad_label(b"ipp v1"))
+        self.append_u64(b"n", n)
+
     def append_scalar(self, label: bytes, scalar: Scalar) -> None:
         self.append_message(label, bytes(reversed(scalar.to_bytes_be())))
 
     def append_point(self, label: bytes, point: StarkPoint) -> None:
         self.append_message(label, stark_point_to_transcript_bytes(point))
+
+    def validate_and_append_point(self, label: bytes, point: StarkPoint) -> None:
+        """Reject the identity point, then absorb it."""
+        if point.is_identity():
+            raise ProofError("verification error: identity point in transcript")
+        self.append_point(label, point)
 
     def challenge_scalar(self, label: bytes) -> Scalar:
         return hash_to_scalar(self.challenge_bytes(label))

@@ -1,5 +1,5 @@
 """Error classes of the port (the subset of the JAX package's taxonomy that
-the range prover and the proof codecs raise)."""
+the range prover, its verifier and the proof codecs raise)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,10 @@ class BulletproofError(Exception):
 
 class ProofError(BulletproofError):
     """Errors from proof creation or verification."""
+
+
+class VerificationError(ProofError):
+    """The proof failed to verify."""
 
 
 class FormatError(ProofError):
