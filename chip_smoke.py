@@ -6,12 +6,13 @@
 Phases, one JSON object per line on standard output:
 
 1. ``env``: torch and CUDA versions, the ``nvcc`` path, the card.
-2. ``build``: all seven CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
+2. ``build``: all ten CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with each library's ptxas report.
 3. ``kernel``: each kernel against its plain PyTorch version on the card:
    ``point_add``, the inner scan and Horner at the shapes each of the
-   prove, verify and msm paths launches them with, the reduction and the
-   ladder at the aggregated m = 64 proof's, ``point_scan_steps`` (which no
+   prove, verify, msm, r1cs_prove and r1cs_verify paths launches them with,
+   the reduction at the aggregated m = 64 proof's, the ladder at the range
+   and R1CS provers', ``point_scan_steps`` (which no
    path runs) at the prove scan's and the vector ops (no path either) at
    (4, 4,096); worst-case lanes (identity, doubling, P + (-P), coordinates
    near p, 0, 1, m - 1 and m - 2); equality is exact on the 64-bit words.
@@ -33,7 +34,21 @@ Phases, one JSON object per line on standard output:
    the result must equal (sum_i s_i k_i) G.  Launch counts around one MSM,
    the median of warm ones, peak memory, a device profile; then one MSM of
    8,286 points (the (64, 64) verification's width), checked the same way.
-7. the ``kernels`` summary with launches per path, the card's
+7. ``r1cs``: the shuffle gadget at k = 2^10 (2,046 multipliers, n = 2,048)
+   on the pinned inputs: commit and gadget seconds, the cold proof and the
+   median of warm ``Prover.prove`` calls, the digest of proof, commitments
+   and transcript against the JAX package's (``pinned.SHUFFLE_DIGESTS``);
+   ``Verifier.verify`` of it, two tampered copies (t_x + 1, the IPP's first
+   L and R swapped) must raise ``VerificationError``; launches around one
+   proof and one verification, one more proof split into its phase MSMs,
+   its inner-product argument and the host rest, warm verifications split
+   into the host terms and the MSM; a device profile of one proof.
+8. ``probes``: the three op-rate probes (``probe_chain``,
+   ``probe_xor_chain``, ``probe_accum``), every op of their TPU benches at
+   the TPU shapes: each held bit for bit to its plain version (NaN equal to
+   NaN), then timed at the full repetition counts (ms, Gop/s, the bound,
+   the share of the card's resident threads the shape fills).
+9. the ``kernels`` summary with launches per path, the card's
    ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Each path asserts that the kernels it must run were launched.
@@ -44,6 +59,8 @@ line.  Without a CUDA device it exits 1 at once.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -58,6 +75,9 @@ WARM_VERIFIES = 3
 WARM_MSMS = 3
 MSM_LOG2N = 20
 VEC_N = 4096
+SHUFFLE_K = 1 << 10
+WARM_R1CS = 3
+RESIDENT_THREADS = 132 * 2048  # H100 SXM: 132 SMs of 2,048 resident threads
 BASE_LANES = 1 << 16  # random points made with their own scaling; wider inputs draw from them
 
 # Bounds: NVIDIA's published H100 SXM rates (data sheet, dense, 700 W):
@@ -86,6 +106,9 @@ REPLACES = {
     "point_reduce": "mpc_bulletproof_tpu/ops/kernels.py:419",
     "mod_pow_static": "mpc_bulletproof_tpu/ops/kernels.py:497",
     "vec2": "mpc_bulletproof_tpu/ops/kernels.py:541",
+    "probe_chain": "benches/tpu_mul_bench.py:40",
+    "probe_xor_chain": "benches/micro_vpu.py:46",
+    "probe_accum": "benches/micro_mul.py:57",
 }
 # The kernels each path must launch.
 PATH_KERNELS = {
@@ -93,6 +116,9 @@ PATH_KERNELS = {
               "mod_pow_static"},
     "verify": {"point_add", "point_scan_steps_inner", "point_horner_multi"},
     "msm": {"point_add", "point_scan_steps_inner", "point_horner_multi"},
+    "r1cs_prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "mod_pow_static"},
+    "r1cs_verify": {"point_add", "point_scan_steps_inner", "point_horner_multi"},
+    "probes": {"probe_chain", "probe_xor_chain", "probe_accum"},
 }
 
 
@@ -128,24 +154,43 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int) -> float | None:
-    """Device time of one run of ``fn()`` from torch.profiler's kernel rows,
-    over ``reps`` runs after one warm-up.  Unlike :func:`cuda_ms` it leaves
-    out the gaps in which the device waits for the host to launch: at small
-    widths those are most of the events' time.  None if the profiler saw
-    no device time."""
+    """Device time of one run of ``fn()``, which launches one kernel, from
+    torch.profiler's kernel rows (:func:`device_ms_by_name`).  Unlike
+    :func:`cuda_ms` it leaves out the gaps in which the device waits for the
+    host to launch: at small widths those are most of the events' time."""
+    return device_ms_by_name([("", fn)], reps)[""]
+
+
+def device_ms_by_name(runs, reps: int, counts: dict | None = None) -> dict:
+    """Device time of one kernel launch per ``(kernel name prefix, fn)``,
+    from ONE torch.profiler session over ``reps`` calls of each ``fn`` (one
+    launch each, after one warm-up each): the kernel rows whose name, less
+    a leading ``void``, starts with the prefix, over the launches the
+    profiler recorded (it can record fewer than ``reps`` of a session's
+    first kernel; ``counts``, if given, gets the recorded launches per
+    prefix).  None where the profiler saw no such kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for _, fn in runs:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        for _, fn in runs:
+            for _ in range(reps):
+                fn()
         torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA)
-    return total / reps / 1e3 if total > 0 else None
+    rows = [(ev.key, ev.self_device_time_total, ev.count) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    out = {}
+    for prefix, _ in runs:
+        hits = [(us, n) for key, us, n in rows if key.removeprefix("void ").startswith(prefix)]
+        total, calls = sum(us for us, _ in hits), sum(n for _, n in hits)
+        if counts is not None:
+            counts[prefix] = calls
+        out[prefix] = total / calls / 1e3 if total > 0 else None
+    return out
 
 
 def read_launches(path: str) -> dict:
@@ -218,13 +263,35 @@ def verify_width(n_bits: int, m_parties: int) -> int:
     return 4 + m_parties + 2 + 2 * (nm - 1).bit_length() + 2 * nm
 
 
-def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = MSM_LOG2N) -> dict:
+def shuffle_phase_widths(k: int) -> dict:
+    """Points of the k-shuffle prover's phase-2 MSMs (every multiplier is
+    in phase 2): B~ and G, H over the 2 (k - 1) multipliers for A_I2 and
+    S2, B~ and G for A_O2.  Each runs ``msm_device`` alone (k = 1)."""
+    n2 = 2 * (k - 1)
+    return {"A_I2,S2": 1 + 2 * n2, "A_O2": 1 + n2}
+
+
+def shuffle_widths(k: int) -> tuple[int, int]:
+    """(IPP width n, mega-check points) of a k-shuffle proof: 2 (k - 1)
+    multipliers padded to n; A_I1..S2, the 2k V, T_1, T_3..T_6, B, B~, the
+    L/R points, G and H."""
+    n = 1 << (2 * (k - 1) - 1).bit_length()
+    return n, 6 + 2 * k + 5 + 2 + 2 * (n - 1).bit_length() + 2 * n
+
+
+def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = MSM_LOG2N,
+                shuffle_k: int = SHUFFLE_K) -> dict:
     """The shapes at which each path launches the point kernels.  prove: an
     IPP round's L/R pair of split-table MSMs (``point_add`` at its chunk
     lane scan, Horner over 8 windows of both MSMs); verify: the (n, m)
     mega-check's MSM; msm: 2^log2n points (``point_add`` at the bucket
-    tails, the widest of those paths)."""
+    tails, the widest of those paths); r1cs_prove: an IPP round's pair of
+    252-bit MSMs over n + 1 points (both MSMs' windows in one bucket phase,
+    Horner at k = 2), and under ``r1cs_prove:<MSMs>`` the phase-2 MSMs of
+    at least ``_DEVICE_MIN`` points (:func:`shuffle_phase_widths`; the
+    smaller ones run on the host); r1cs_verify: the shuffle's mega-check."""
     from mpc_bulletproof_tpu_torch.constants import FIELD_BITS
+    from mpc_bulletproof_tpu_torch.ops import backend
     from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
 
     nm = n_bits * m_parties
@@ -232,13 +299,17 @@ def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = M
     nt, T = msm_mod._chunk_shape(W, n)
     shapes = {"prove": {"n": n, "c": msm_mod.SPLIT_WINDOW, "W": W, "nt": nt, "T": T,
                         "add": (W, nt), "horner": (8, 2)}}
-    for path, n in (("verify", verify_width(n_bits, m_parties)), ("msm", 1 << log2n)):
+    ipp_n, r1cs_width = shuffle_widths(shuffle_k)
+    phase = [(f"r1cs_prove:{name}", n, 1) for name, n in shuffle_phase_widths(shuffle_k).items()
+             if n >= backend._DEVICE_MIN]
+    for path, n, k in (("verify", verify_width(n_bits, m_parties), 1), ("msm", 1 << log2n, 1),
+                       ("r1cs_prove", ipp_n + 1, 2), *phase, ("r1cs_verify", r1cs_width, 1)):
         c = msm_mod.select_window(n)
         nw = -(-FIELD_BITS // c)
-        W = msm_mod._window_group(nw, n)
+        W = msm_mod._window_group(k * nw, n)
         nt, T = msm_mod._chunk_shape(W, n)
         shapes[path] = {"n": n, "c": c, "W": W, "nt": nt, "T": T, "add": (W, 1 << (c - 1)),
-                        "horner": (nw, 1)}
+                        "horner": (nw, k)}
     return shapes
 
 
@@ -256,7 +327,7 @@ def timed_ms(fn):
 
 
 def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES,
-                  log2n: int = MSM_LOG2N) -> dict:
+                  log2n: int = MSM_LOG2N, shuffle_k: int = SHUFFLE_K) -> dict:
     """Each kernel against its plain version: the point kernels at the
     shapes each path launches them with (:func:`path_shapes`), the others
     at the prove path's or their own.  Returns per kernel the prove (or
@@ -291,7 +362,7 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         emit(res)
         rows.setdefault(name, {})[path] = res
 
-    shapes = path_shapes(n_bits, m_parties, log2n)
+    shapes = path_shapes(n_bits, m_parties, log2n, shuffle_k)
     for path, sh in shapes.items():
         aw, an = sh["add"]
         a = random_points(pool, aw * an, gen)
@@ -336,11 +407,13 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         xs[:, :k] = edge[:, :k]
         return xs.contiguous()
 
-    pow_cases = [  # (lanes, field, exponent): per round u^-1 (FR, 1), L/R affine (FP, 2),
-        (2, FP, P - 2), (1, FR, R - 2), (m_parties, FP, P - 2),  # V affine (FP, m)
-        (msm_mod.SPLIT_CHUNKS * (2 * nm + 1), FP, P - 2),        # split-table affine
-    ]
-    pow_inputs = [(scalars(k, mp), mp, e) for k, mp, e in pow_cases]
+    pow_paths = {  # per path (lanes, field, exponent); the first is timed
+        # per IPP round the L/R affine conversion (FP, 2) and u^-1 (FR, 1); V affine (FP, m);
+        # the split table's affine conversion
+        "prove": [(2, FP, P - 2), (1, FR, R - 2), (m_parties, FP, P - 2),
+                  (msm_mod.SPLIT_CHUNKS * (2 * nm + 1), FP, P - 2)],
+        "r1cs_prove": [(1, FR, R - 2), (2, FP, P - 2)],
+    }
 
     def pow_ops(k, mp, e):
         ndig = (e.bit_length() + 3) // 4
@@ -348,24 +421,26 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         prods = 2 + 14 + 4 * (ndig - 1) + nnz
         return k * prods * (FP_MUL_OPS if mp is FP else FR_MUL_OPS)
 
-    # mod_pow: every case must agree; the per-round inverse (FP, 2 lanes) is timed
-    errs, equal = [], True
-    for x, mp, e in pow_inputs:
-        got = kernels.mod_pow_static(x, e, mp)
-        want = kernels.mod_pow_plain(x, e, mp)
-        equal &= bool(torch.equal(got, want))
-        errs.append(max_abs_err(got, want, 0))
-    x0, mp0, e0 = pow_inputs[0]
-    bound_ms, bound_by = bound(2 * 32 * x0.shape[-1], pow_ops(x0.shape[-1], mp0, e0))
-    res = {"phase": "kernel", "name": "mod_pow_static", "path": "prove",
-           "shape": [{"n": k, "field": "FP" if mp is FP else "FR"} for k, mp, _ in pow_cases],
-           "tolerance": 0, "equal": equal, "max_abs_err": max(errs),
-           "kernel_ms": cuda_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20),
-           "device_ms": device_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20),
-           "plain_ms": timed_ms(lambda: kernels.mod_pow_plain(x0, e0, mp0))[1],
-           "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
-    emit(res)
-    results = {"mod_pow_static": res, "vec2": check_vec_ops(gpu, scalars)}
+    for path, cases in pow_paths.items():
+        pow_inputs = [(scalars(k, mp), mp, e) for k, mp, e in cases]
+        errs, equal = [], True
+        for x, mp, e in pow_inputs:
+            got = kernels.mod_pow_static(x, e, mp)
+            want = kernels.mod_pow_plain(x, e, mp)
+            equal &= bool(torch.equal(got, want))
+            errs.append(max_abs_err(got, want, 0))
+        x0, mp0, e0 = pow_inputs[0]
+        bound_ms, bound_by = bound(2 * 32 * x0.shape[-1], pow_ops(x0.shape[-1], mp0, e0))
+        res = {"phase": "kernel", "name": "mod_pow_static", "path": path,
+               "shape": [{"n": k, "field": "FP" if mp is FP else "FR"} for k, mp, _ in cases],
+               "tolerance": 0, "equal": equal, "max_abs_err": max(errs),
+               "kernel_ms": cuda_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20),
+               "device_ms": device_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20),
+               "plain_ms": timed_ms(lambda: kernels.mod_pow_plain(x0, e0, mp0))[1],
+               "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
+        emit(res)
+        rows.setdefault("mod_pow_static", {})[path] = res
+    results = {"vec2": check_vec_ops(gpu, scalars)}
     for name, by_path in rows.items():
         first = by_path.get("prove", next(iter(by_path.values())))
         results[name] = {**first, "equal": all(r["equal"] for r in by_path.values()),
@@ -495,8 +570,7 @@ def verify_phase(gpu: str, dev, mp: dict, n_bits: int = N_BITS) -> dict:
 
     from mpc_bulletproof_tpu_torch import (HashChainTranscript, RangeProof, Scalar,
                                            VerificationError, pinned)
-    from mpc_bulletproof_tpu_torch.models.range_proof import _mega_check
-    from mpc_bulletproof_tpu_torch.ops import kernels
+    from mpc_bulletproof_tpu_torch.ops import backend, kernels
 
     proof, V = mp["proof"], mp["V"]
     bp_gens, pc_gens = mp["bp_gens"], mp["pc_gens"]
@@ -542,7 +616,7 @@ def verify_phase(gpu: str, dev, mp: dict, n_bits: int = N_BITS) -> dict:
     for _ in range(WARM_VERIFIES):
         warm += host_ms(verify, 1)
         terms += host_ms(lambda: proof._verification_terms(bp_gens, pc_gens, tr(), V, n_bits), 1)
-        msm += host_ms(lambda: _mega_check(bp_gens, n_bits, m, scalars + g + h, points, dev), 1)
+        msm += host_ms(lambda: backend.gens_msm(bp_gens, scalars + g + h, points, n_bits, m, device=dev), 1)
     res = {"phase": "verify", "n": n_bits, "m": m, "verified": True, "rejected": rejected,
            "batch_of_2_verified": True, "msm_points": len(scalars) + len(g) + len(h),
            "cold_verify_s": cold_s, "warm_verify_ms": warm, "host_terms_ms": terms, "msm_ms": msm,
@@ -632,6 +706,282 @@ def msm_phase(gpu: str, dev, log2n: int = MSM_LOG2N) -> dict:
     return res
 
 
+def r1cs_phase(gpu: str, dev, k: int = SHUFFLE_K) -> dict:
+    """The k-shuffle proved and verified on the card, held to the JAX
+    package's digest; launches of one proof and one verification; tampered
+    proofs rejected."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch import (BulletproofGens, PedersenGens, Prover, VerificationError,
+                                           Verifier, pinned)
+    from mpc_bulletproof_tpu_torch.models.inner_product import InnerProductProof
+    from mpc_bulletproof_tpu_torch.models.r1cs.gadgets import shuffle_gadget
+    from mpc_bulletproof_tpu_torch.ops import backend, kernels
+
+    want = pinned.SHUFFLE_DIGESTS[k]
+    inputs, outputs, blindings = pinned.shuffle_inputs(k)
+    ipp_n, width = shuffle_widths(k)
+
+    t0 = time.perf_counter()
+    bp_gens = BulletproofGens(ipp_n, 1, device=dev)
+    pc_gens = PedersenGens()
+    torch.cuda.synchronize()
+    gens_s = time.perf_counter() - t0
+
+    # the 2k Pedersen commitments (host) once; every proof starts from a copy
+    t0 = time.perf_counter()
+    committed = Prover(pc_gens, pinned.shuffle_transcript(k))
+    pairs = [committed.commit(v, b) for v, b in zip(inputs + outputs, blindings)]
+    commit_s = time.perf_counter() - t0
+    V = [c for c, _ in pairs]
+    x_vars, y_vars = [var for _, var in pairs[:k]], [var for _, var in pairs[k:]]
+
+    def prover():
+        p = copy.deepcopy(committed)
+        shuffle_gadget(p, x_vars, y_vars)
+        return p
+
+    def prove(p):
+        proof = p.prove(bp_gens, device=dev, rng_bytes=pinned.det_stream())
+        digest = pinned.proof_digest(proof, V, p.transcript().state)
+        if digest != want:
+            raise RuntimeError(f"shuffle proof digest {digest} != pinned {want}")
+        return proof
+
+    t0 = time.perf_counter()
+    p = prover()
+    gadget_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = prove(p)                                  # cold: uploads the generators
+    cold_s = time.perf_counter() - t0
+
+    p = prover()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    prove(p)
+    counted_s = time.perf_counter() - t0
+    prove_launches = read_launches("r1cs_prove")
+    warm = []
+    for _ in range(WARM_R1CS):
+        p = prover()
+        t0 = time.perf_counter()
+        prove(p)
+        warm.append(time.perf_counter() - t0)
+
+    # verification: the verifier absorbs the 2k commitments once; copies then
+    # run the gadget and verify
+    t0 = time.perf_counter()
+    committed_v = Verifier(pc_gens, pinned.shuffle_transcript(k))
+    vx = [committed_v.commit(c) for c in V[:k]]
+    vy = [committed_v.commit(c) for c in V[k:]]
+    verifier_commit_s = time.perf_counter() - t0
+
+    def verifier():
+        v = copy.deepcopy(committed_v)
+        shuffle_gadget(v, vx, vy)
+        return v
+
+    t0 = time.perf_counter()
+    verifier().verify(proof, bp_gens, device=dev)     # cold
+    cold_verify_s = time.perf_counter() - t0
+    v = verifier()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    v.verify(proof, bp_gens, device=dev)
+    verify_launches = read_launches("r1cs_verify")
+
+    ipp = proof.ipp_proof
+    swapped = InnerProductProof([ipp.R_vec[0]] + ipp.L_vec[1:], [ipp.L_vec[0]] + ipp.R_vec[1:],
+                                ipp.a, ipp.b)
+    rejected = {}
+    for case, bad in (("t_x+1", dataclasses.replace(proof, t_x=proof.t_x + 1)),
+                      ("swap_L1_R1", dataclasses.replace(proof, ipp_proof=swapped))):
+        try:
+            verifier().verify(bad, bp_gens, device=dev)
+        except VerificationError:
+            rejected[case] = True
+        else:
+            raise RuntimeError(f"R1CS verify accepted a tampered proof ({case})")
+
+    # interleaved, so the split and the whole see the same host
+    scalars, points, padded_n = verifier()._verification_terms(proof, bp_gens)
+    if len(scalars) != width:
+        raise RuntimeError(f"mega-check has {len(scalars)} points, expected {width}")
+    w_all, w_terms, w_msm = [], [], []
+    for _ in range(WARM_R1CS):
+        v = verifier()
+        w_all += host_ms(lambda: v.verify(proof, bp_gens, device=dev), 1)
+        v = verifier()
+        w_terms += host_ms(lambda: v._verification_terms(proof, bp_gens), 1)
+        w_msm += host_ms(lambda: backend.gens_msm(bp_gens, scalars, points, padded_n, device=dev), 1)
+
+    p = prover()
+    split = prove_split(lambda: prove(p))
+
+    res = {"phase": "r1cs", "gadget": "shuffle", "k": k, "multipliers": 2 * (k - 1), "n": ipp_n,
+           "digest": want, "digest_equal": True, "proof_bytes": len(proof.to_bytes()),
+           "gens_s": gens_s, "commit_s": commit_s, "commits": 2 * k, "gadget_s": gadget_s,
+           "cold_prove_s": cold_s, "counted_prove_s": counted_s, "warm_prove_s": warm,
+           "us_per_proof_median": statistics.median(warm) * 1e6, "prove_split_s": split,
+           "verifier_commit_s": verifier_commit_s, "cold_verify_s": cold_verify_s,
+           "verified": True, "rejected": rejected, "msm_points": width,
+           "warm_verify_ms": w_all, "host_terms_ms": w_terms, "msm_ms": w_msm,
+           "us_per_verify_median": statistics.median(w_all) * 1e3,
+           "host_terms_us_median": statistics.median(w_terms) * 1e3,
+           "msm_us_median": statistics.median(w_msm) * 1e3,
+           "launches": {"r1cs_prove": prove_launches, "r1cs_verify": verify_launches}, "gpu": gpu}
+    emit(res)
+    p = prover()
+    emit(profile_run(lambda: prove(p), res["us_per_proof_median"], gpu, "r1cs_prove"))
+    return res
+
+
+def prove_split(run) -> dict:
+    """One more proof by ``run()``, its host-clock time split into the phase
+    MSMs (``backend.gens_msm``), the inner-product argument
+    (``InnerProductProof.create``) and the rest (RNG rekeying, constraints,
+    t-polynomial, T commitments, transcript), each part ended by a
+    synchronize.  The wrappers are removed again before returning."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.models.inner_product import InnerProductProof
+    from mpc_bulletproof_tpu_torch.ops import backend
+
+    spent = {"phase_msms": 0.0, "ipp": 0.0}
+
+    def timed(part, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[part] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    orig_msm, orig_create = backend.gens_msm, InnerProductProof.__dict__["create"]
+    backend.gens_msm = timed("phase_msms", orig_msm)
+    InnerProductProof.create = staticmethod(timed("ipp", orig_create.__func__))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        backend.gens_msm, InnerProductProof.create = orig_msm, orig_create
+    return {"total": total, **spent, "rest": total - sum(spent.values())}
+
+
+def probe_inputs(dev) -> dict:
+    """The TPU benches' inputs per probe and dtype: int32 in [1, 2^12) for
+    the chain (its float32 copy the same values), int32 in [1, 8191) and
+    float32 in [0.5, 1.5) for the xor chain, int32 in [0, 2^13) for the
+    accumulation (float32: the same values)."""
+    import numpy as np
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, device=dev).contiguous()
+    ci = [t(rng.integers(1, 1 << 12, probes.CHAIN_SHAPE, dtype=np.int32)) for _ in range(2)]
+    xi = t(rng.integers(1, 8191, probes.XOR_SHAPE, dtype=np.int32))
+    xf = t(rng.uniform(0.5, 1.5, probes.XOR_SHAPE).astype(np.float32))
+    ai = [t(rng.integers(0, 1 << 13, probes.ACCUM_SHAPE).astype(np.int32)) for _ in range(2)]
+    return {"chain": {torch.int32: ci, torch.float32: [c.float() for c in ci]},
+            "xor": {torch.int32: [xi], torch.float32: [xf]},
+            "accum": {torch.int32: ai, torch.float32: [a.float() for a in ai]}}
+
+
+def probes_phase(gpu: str, dev) -> dict:
+    """Every op of the three probes at its TPU shape: held to its plain
+    version bit for bit (NaN equal to NaN) at ``check_reps``, then launched
+    once at the full counts (the launches read), then timed."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import kernels, probes
+
+    xor_lo, xor_hi = probes.XOR_REPS
+    specs = {  # kernel: (key, ops, ops per step, kernel call, plain call, full reps, check reps)
+        "probe_chain": ("chain", probes.CHAIN_OPS, probes.CHAIN_OPS_PER_STEP, probes.probe_chain,
+                        probes.chain_plain, probes.CHAIN_REPS, probes.CHAIN_REPS),
+        "probe_xor_chain": ("xor", probes.XOR_OPS, probes.XOR_OPS_PER_STEP, probes.probe_xor_chain,
+                            probes.xor_chain_plain, xor_hi, 64),
+        "probe_accum": ("accum", probes.ACCUM_OPS, probes.ACCUM_OPS_PER_STEP, probes.probe_accum,
+                        probes.accum_plain, probes.ACCUM_REP, probes.ACCUM_REP),
+    }
+    inputs = probe_inputs(dev)
+    args = lambda key, op: inputs[key][probes.op_dtype(op)]
+
+    def err(got, want) -> float:
+        if got.dtype == torch.int32:
+            return float((got.long() - want.long()).abs().max())
+        same = (got == want) | (got.isnan() & want.isnan())
+        return 0.0 if bool(same.all()) else float((got - want)[~same].abs().nan_to_num(float("inf")).max())
+
+    rows: dict = {}
+    for name, (key, ops, per_step, fn, plain, full, check) in specs.items():
+        for op in ops:
+            got = fn(op, *args(key, op), check)
+            torch.cuda.synchronize()
+            want, plain_ms = timed_ms(lambda: plain(op, *args(key, op), check))
+            e = err(got, want)
+            if e != 0:
+                raise RuntimeError(f"{name} {op} disagrees with its plain version (max err {e})")
+            rows.setdefault(name, {})[op] = {"check_reps": check, "max_abs_err": e,
+                                             "plain_ms": plain_ms}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for name, (key, ops, _, fn, _, full, _) in specs.items():    # the benches' runs
+        for op in ops:
+            fn(op, *args(key, op), full)
+            if name == "probe_xor_chain":
+                fn(op, *args(key, op), xor_lo)
+    torch.cuda.synchronize()
+    launches = read_launches("probes")
+
+    kernel_of = {"probe_chain": "chain_kernel", "probe_xor_chain": "xor_chain_kernel",
+                 "probe_accum": "accum_kernel"}
+    runs = [(f"{kernel_of[name]}<{i}>(", lambda fn=fn, op=op, a=args(key, op), full=full: fn(op, *a, full))
+            for name, (key, ops, _, fn, _, full, _) in specs.items() for i, op in enumerate(ops)]
+    recorded: dict = {}
+    dev_ms = device_ms_by_name(runs, 20, recorded)
+    summary = {}
+    for name, (key, ops, per_step, fn, plain, full, _) in specs.items():
+        for i, op in enumerate(ops):
+            a = args(key, op)
+            lanes = a[0].numel()
+            r = rows[name][op]
+            r["ms"] = cuda_ms(lambda: fn(op, *a, full), 20)
+            r["device_ms"] = dev_ms[f"{kernel_of[name]}<{i}>("]
+            r["device_launches_recorded"] = recorded[f"{kernel_of[name]}<{i}>("]
+            ops_count = lanes * full * per_step[op]
+            r["bound_ms"], r["bound_by"] = bound(lanes * 4 * (len(a) + 1), ops_count)
+            r["gops_per_s"] = ops_count / r["ms"] / 1e6
+            r["fill_share"] = min(1.0, lanes / RESIDENT_THREADS)
+            if name == "probe_xor_chain":
+                lo_ms = cuda_ms(lambda: fn(op, *a, xor_lo), 20)
+                r["ms_at_%d" % xor_lo] = lo_ms
+                r["gchain_iter_per_s_net"] = (full - xor_lo) * lanes / (r["ms"] - lo_ms) / 1e6
+            emit({"phase": "probe", "kernel": name, "op": op, "lanes": lanes, "reps": full,
+                  "ops_per_step": per_step[op], **r, "gpu": gpu})
+        # the kernels line's numbers: the bench's int32 multiply, its plain version at the full counts
+        a = args(key, "i32_mul")
+        got = fn("i32_mul", *a, full)
+        want, plain_full_ms = timed_ms(lambda: plain("i32_mul", *a, full))
+        e = err(got, want)
+        if e != 0:
+            raise RuntimeError(f"{name} i32_mul disagrees with its plain version at {full} reps")
+        m = rows[name]["i32_mul"]
+        summary[name] = {"kernel_ms": m["ms"], "device_ms": m["device_ms"], "plain_ms": plain_full_ms,
+                         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "op": "i32_mul",
+                         "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
+                         "equal": True, "fill_share": m["fill_share"], "ops": rows[name]}
+    return {"launches": launches, "checks": summary}
+
+
 def profile_run(fn, warm_us: float, gpu: str, what: str) -> dict:
     """Device time by kernel over one warm run of ``fn`` (torch.profiler).
     The profiler slows the host, so the idle share is also given against
@@ -676,7 +1026,7 @@ def kernel_summary(checks: dict, paths: dict) -> list:
             "equal": r["equal"], "launches_per_path": per_path,
             "on_paths": sorted(p for p, ks in PATH_KERNELS.items() if name in ks),
         }
-        for extra in ("ops", "at_paths"):
+        for extra in ("ops", "at_paths", "op", "fill_share"):
             if extra in r:
                 row[extra] = r[extra]
         summary.append(row)
@@ -709,8 +1059,12 @@ def main() -> int:
     mp = main_path(gpu, dev)
     vf = verify_phase(gpu, dev, mp)
     ms = msm_phase(gpu, dev)
+    rc = r1cs_phase(gpu, dev)
+    pr = probes_phase(gpu, dev)
+    checks.update(pr["checks"])
 
-    paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"]}
+    paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"],
+             **rc["launches"], "probes": pr["launches"]}
     summary = kernel_summary(checks, paths)
     emit({"kernels": summary})
     print(smi_line(), flush=True)

@@ -23,6 +23,9 @@ from .ops.keccak import keccak256, keccak256_batch32, pad_label
 from .utils.device import resolve_device
 
 _TABLE_CACHE: dict = {}
+# Device tensors per gens object: keyed by id() with a strong reference held
+# beside, so a recycled id never aliases another object.
+_GENS_CACHE: dict = {}
 
 
 def device_point_table(pt: StarkPoint, device) -> torch.Tensor:
@@ -55,6 +58,34 @@ def fixed_base_mul(scalars, pt: StarkPoint, device) -> list[StarkPoint]:
     return [StarkPoint.identity() if i else StarkPoint(a, b) for a, b, i in zip(xs, ys, ids)]
 
 
+def gens_cache_entry(obj) -> dict:
+    """The dict of device tensors cached for the generator object ``obj``."""
+    ref, per = _GENS_CACHE.setdefault(id(obj), (obj, {}))
+    if ref is not obj:
+        raise RuntimeError("generator cache entry aliases another object")
+    return per
+
+
+def device_gens(bp_gens: "BulletproofGens", n: int, m: int, device):
+    """Aggregated ``(G(n, m), H(n, m))`` as ``(3, NW, nm)`` tensors on
+    ``device``, uploaded once per gens object.  One party's vectors of
+    every length are copies of the slice of one upload of its capacity."""
+    from .ops import curve_t
+
+    per = gens_cache_entry(bp_gens)
+    key = ("gens", n, m, str(device))
+    if key not in per:
+        if m == 1 and n < bp_gens.gens_capacity:
+            full = device_gens(bp_gens, bp_gens.gens_capacity, 1, device)
+            per[key] = tuple(g[..., :n].contiguous() for g in full)
+        else:
+            per[key] = tuple(
+                torch.as_tensor(curve_t.points_from_host(pts), device=device)
+                for pts in (bp_gens.G(n, m), bp_gens.H(n, m))
+            )
+    return per[key]
+
+
 class PedersenGens:
     """The pair of Pedersen bases; both default to the curve generator."""
 
@@ -63,6 +94,14 @@ class PedersenGens:
     def __init__(self, B: StarkPoint | None = None, B_blinding: StarkPoint | None = None):
         self.B = B if B is not None else StarkPoint.generator()
         self.B_blinding = B_blinding if B_blinding is not None else StarkPoint.generator()
+
+    def commit(self, value: Scalar, blinding: Scalar) -> StarkPoint:
+        """``value B + blinding B_blinding``, on the host."""
+        return StarkPoint.msm([value, blinding], [self.B, self.B_blinding])
+
+    def commit_batch(self, values, blindings) -> list[StarkPoint]:
+        """:meth:`commit` for each pair."""
+        return [self.commit(v, b) for v, b in zip(values, blindings)]
 
 
 def _chain_start(label: bytes) -> bytes:
@@ -120,9 +159,28 @@ class BulletproofGens:
             vec.extend(pts[c * extra : (c + 1) * extra])
         self.gens_capacity = new_capacity
 
+    def share(self, j: int) -> "BulletproofGensShare":
+        return BulletproofGensShare(self, j)
+
     def G(self, n: int, m: int) -> list[StarkPoint]:
         """Party-major aggregated G vector."""
         return [self.G_vec[j][i] for j in range(m) for i in range(n)]
 
     def H(self, n: int, m: int) -> list[StarkPoint]:
         return [self.H_vec[j][i] for j in range(m) for i in range(n)]
+
+
+class BulletproofGensShare:
+    """Party ``share``'s G and H chains; ``share(0).G(n)`` is ``G(n, 1)``."""
+
+    __slots__ = ("gens", "share")
+
+    def __init__(self, gens: BulletproofGens, share: int):
+        self.gens = gens
+        self.share = share
+
+    def G(self, n: int) -> list[StarkPoint]:
+        return self.gens.G_vec[self.share][:n]
+
+    def H(self, n: int) -> list[StarkPoint]:
+        return self.gens.H_vec[self.share][:n]

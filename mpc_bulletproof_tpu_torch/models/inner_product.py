@@ -1,5 +1,6 @@
 """The Bulletproofs inner-product argument (IPP): proof type, codec, the
-verifier, and the fused prover body that runs every round on the card.
+prover (:meth:`InnerProductProof.create`), the verifier, and the fused
+prover body that runs every round on the card.
 
 Per round, the cross inner products ``c_L = <a_L, b_R>``, ``c_R = <a_R, b_L>``
 and two (n+1)-term MSMs give L and R; the transcript absorbs them and
@@ -7,8 +8,11 @@ yields the challenge u; the witness folds in half (``a' = u a_L + u^-1 a_R``).
 The prover tracks one coefficient per ORIGINAL generator instead of folding
 the generators: after the rounds so far, folded generator k is
 ``sum_{i mod cur == k} w_i G_i``, so L and R are MSMs over the original
-generators with coefficients ``w_i a_class(i)``, against the cached split
-table.  The proof is ``(L_1..L_k, R_1..R_k, a, b)``.
+generators with coefficients ``w_i a_class(i)``: against the cached split
+table in the range prover, against ``[G | H | Q]`` otherwise.  Below a
+width of :data:`_DEVICE_MIN` the prover runs on the host in Python
+integers, as the JAX package's does.  The proof is ``(L_1..L_k, R_1..R_k,
+a, b)``.
 
 The verifier replays the transcript on the host for the challenges, builds
 the scalar vectors there and checks one MSM (:func:`..ops.backend.dispatch_msm`).
@@ -21,13 +25,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..constants import R, SCALAR_BYTES, STARK_POINT_BYTES
-from ..ops.backend import dispatch_msm
+from ..constants import FIELD_BITS, R, SCALAR_BYTES, STARK_POINT_BYTES
+from ..ops.backend import _DEVICE_MIN, dispatch_msm
 from ..ops.curve import StarkPoint
 from ..ops.field import Scalar
 from ..transcript import HashChainTranscript
+from ..utils.device import resolve_device
 from ..utils.errors import FormatError, VerificationError
-
 
 @dataclass
 class InnerProductProof:
@@ -35,6 +39,34 @@ class InnerProductProof:
     R_vec: list[StarkPoint]
     a: Scalar
     b: Scalar
+
+    @staticmethod
+    def create(transcript: HashChainTranscript, Q: StarkPoint, G_factors: list[Scalar],
+               H_factors: list[Scalar], G_vec, H_vec, a_vec: list[Scalar], b_vec: list[Scalar],
+               *, device="cuda") -> "InnerProductProof":
+        """Prove ``P = <a, G_factors G> + <b, H_factors H> + <a, b> Q``.
+
+        ``G_vec`` and ``H_vec`` are host point lists, or from
+        :data:`_DEVICE_MIN` on also ``(3, NW, n)`` point tensors already on
+        ``device``.  From :data:`_DEVICE_MIN` the rounds run on ``device``
+        (the card unless the caller asks for the CPU), below it on the host
+        over host lists; a point tensor below it raises rather than move
+        back to the host.  A card asked for and missing raises."""
+        dev = resolve_device(device)
+        n = _width(G_vec)
+        if not all(len(v) == n for v in (a_vec, b_vec, G_factors, H_factors)) or _width(H_vec) != n:
+            raise ValueError("IPP input vectors must share one length")
+        if n & (n - 1):
+            raise ValueError("IPP length must be a power of two")
+        on_host = n < _DEVICE_MIN
+        if on_host and any(isinstance(v, torch.Tensor) for v in (G_vec, H_vec)):
+            raise ValueError(f"IPP below width {_DEVICE_MIN} runs on the host: pass host point lists")
+        transcript.innerproduct_domain_sep(n)
+        if on_host:
+            return _create_host(transcript, Q, G_factors, H_factors, list(G_vec), list(H_vec),
+                                a_vec, b_vec, dev)
+        return _create_device_fused(transcript, Q, G_factors, H_factors, G_vec, H_vec,
+                                    a_vec, b_vec, dev)
 
     def replay_challenges(self, n: int, transcript: HashChainTranscript):
         """Replay the transcript's absorbs; returns the round challenges
@@ -121,6 +153,95 @@ class InnerProductProof:
         return InnerProductProof(L_vec, R_vec, a, b_sc)
 
 
+def _width(pts) -> int:
+    return pts.shape[-1] if isinstance(pts, torch.Tensor) else len(pts)
+
+
+def _device_points(pts, device) -> torch.Tensor:
+    from ..ops import curve_t
+
+    if isinstance(pts, torch.Tensor):
+        return pts.to(device)
+    return torch.as_tensor(curve_t.points_from_host(pts), device=device)
+
+
+def _create_host(transcript, Q, G_factors, H_factors, G, H, a, b, device) -> InnerProductProof:
+    """The IPP rounds on the host, in Python integers with coefficient
+    tracking (module docstring); L and R through :func:`dispatch_msm`."""
+    n = len(G)
+    if n == 1:
+        return InnerProductProof([], [], Scalar(int(a[0])), Scalar(int(b[0])))
+    wG = [int(x) for x in G_factors]
+    wH = [int(x) for x in H_factors]
+    av = [int(x) for x in a]
+    bv = [int(x) for x in b]
+    all_pts = list(G) + list(H) + [Q]
+    L_vec: list[StarkPoint] = []
+    R_vec: list[StarkPoint] = []
+    cur = n
+    while cur > 1:
+        half = cur // 2
+        a_L, a_R = av[:half], av[half:]
+        b_L, b_R = bv[:half], bv[half:]
+        sL = [0] * (n + 1)
+        sR = [0] * (n + 1)
+        for i in range(n):
+            r = i % cur
+            if r >= half:
+                sL[i] = wG[i] * a_L[r - half] % R
+                sR[i] = wH[i] * b_L[r - half] % R
+            else:
+                sL[i] = wH[i] * b_R[r] % R
+                sR[i] = wG[i] * a_R[r] % R
+        sL[n] = sum(x * y for x, y in zip(a_L, b_R)) % R
+        sR[n] = sum(x * y for x, y in zip(a_R, b_L)) % R
+        idxL, idxR = _ipp_round_indices(n, cur)
+        L = dispatch_msm(sL, [all_pts[j] for j in idxL], device=device)
+        R_pt = dispatch_msm(sR, [all_pts[j] for j in idxR], device=device)
+        L_vec.append(L)
+        R_vec.append(R_pt)
+        transcript.append_point(b"L", L)
+        transcript.append_point(b"R", R_pt)
+        u = int(transcript.challenge_scalar(b"u"))
+        u_inv = pow(u, -1, R)
+        for i in range(n):
+            lo = (i % cur) < half
+            wG[i] = wG[i] * (u_inv if lo else u) % R
+            wH[i] = wH[i] * (u if lo else u_inv) % R
+        av = [(al * u + u_inv * ar) % R for al, ar in zip(a_L, a_R)]
+        bv = [(bl * u_inv + u * br) % R for bl, br in zip(b_L, b_R)]
+        cur = half
+    return InnerProductProof(L_vec, R_vec, Scalar(av[0]), Scalar(bv[0]))
+
+
+def _create_device_fused(transcript, Q, G_factors, H_factors, G, H, a, b, device) -> InnerProductProof:
+    """Every round on ``device`` (:func:`fused_ipp_body`, general branch over
+    ``[G | H | Q | identity]``); one copy back to the host at the end, and
+    the host transcript takes the device's final state."""
+    from ..ops import curve_t as ct
+    from ..ops import packio
+    from ..ops.limb import NW, words_to_ints
+
+    n = len(a)
+    sc = lambda xs: torch.as_tensor(ct.scalars_from_host(xs), device=device)
+    table = torch.cat([_device_points(G, device), _device_points(H, device),
+                       _device_points([Q], device), ct.identity((1,), device)], dim=-1).contiguous()
+    state = torch.as_tensor(np.frombuffer(transcript.state, np.uint8).astype(np.int64), device=device)
+    out = packio.pack_device(list(fused_ipp_body(n, device)(
+        state, sc(a), sc(b), sc(G_factors), sc(H_factors), table)))
+    rounds = (n - 1).bit_length()
+    shapes = [(32,), (NW,), (NW,), (rounds, NW, 2), (rounds, NW, 2), (rounds, 2)]
+    state_np, a_fin, b_fin, xs, ys, iids = packio.unpack_np(out.cpu().numpy(), shapes)
+    transcript.state = bytes(int(v) for v in state_np)
+    L_vec, R_vec = [], []
+    for rnd in range(rounds):
+        xv, yv = words_to_ints(xs[rnd]), words_to_ints(ys[rnd])
+        for k, vec in ((0, L_vec), (1, R_vec)):
+            vec.append(StarkPoint.identity() if iids[rnd, k] else StarkPoint(xv[k], yv[k]))
+    return InnerProductProof(L_vec, R_vec, Scalar(words_to_ints(a_fin[:, None])[0]),
+                             Scalar(words_to_ints(b_fin[:, None])[0]))
+
+
 def _ipp_round_indices(n: int, cur: int):
     """(idxL, idxR) point indices of one round over the layout
     ``[G_0..G_{n-1}, H_0..H_{n-1}, Q]``."""
@@ -132,23 +253,35 @@ def _ipp_round_indices(n: int, cur: int):
     return idxL, idxR
 
 
-def fused_ipp_body(n: int, device):
-    """The fused IPP prover of size ``n`` (a power of two, at least 2) over
-    the split table of ``[G(n) | H(n) | B]``.
+def fused_ipp_body(n: int, device, table_gens: bool = False):
+    """The fused IPP prover of size ``n`` (a power of two, at least 2).
 
-    Returns ``run(state, a, b, wG, wH, table, q_scale) -> (state, a_final,
-    b_final, xs, ys, iids)``: ``a``, ``b``, ``wG``, ``wH`` are ``(NW, n)``
-    scalars, ``Q = q_scale B`` rides base B with scalar ``c q_scale``, and
-    ``xs``, ``ys``, ``iids`` are the per-round affine L/R points
-    ``(rounds, NW, 2)`` and identity flags ``(rounds, 2)``.  Every round keeps
-    the full width ``n``, zero past the live length."""
+    Returns ``run(state, a, b, wG, wH, table, q_scale=None) -> (state,
+    a_final, b_final, xs, ys, iids)``: ``a``, ``b``, ``wG``, ``wH`` are
+    ``(NW, n)`` scalars, and ``xs``, ``ys``, ``iids`` are the per-round
+    affine L/R points ``(rounds, NW, 2)`` and identity flags ``(rounds, 2)``.
+    Every round keeps the full width ``n``, zero past the live length.
+
+    ``table_gens=True`` (the range prover): ``table`` is the split table of
+    ``[G(n) | H(n) | B]``, the round MSMs run on 64-bit chunks, and ``Q =
+    q_scale B`` rides base B with scalar ``c q_scale``.  Otherwise ``table``
+    is ``[G(n) | H(n) | Q | identity]`` and each round's L and R are one
+    pair of 252-bit MSMs over its records (``c = select_window(n + 1)``):
+    one sort, one bucket phase and one Horner chain with both outputs on the
+    lane axis (:func:`..ops.msm._msm_multi_table_impl`)."""
     from ..ops import kernels, limb
     from ..ops import msm as msm_mod
     from ..ops import transcript_t as tj
     from ..ops.limb import FR, NW
 
     nh = n // 2
-    records = lambda ix: torch.as_tensor(msm_mod.split_record_indices(ix, 2 * n + 1), device=device)
+    if table_gens:
+        records = lambda ix: torch.as_tensor(msm_mod.split_record_indices(ix, 2 * n + 1),
+                                             device=device)
+        c, bits = msm_mod.SPLIT_WINDOW, msm_mod.SPLIT_CHUNK_BITS
+    else:
+        records = lambda ix: torch.as_tensor(ix, device=device)
+        c, bits = msm_mod.select_window(n + 1), FIELD_BITS
     rounds = []
     cur = n
     while cur > 1:
@@ -158,7 +291,7 @@ def fused_ipp_body(n: int, device):
     lanes = torch.arange(n, device=device)
     live_h = torch.arange(nh, device=device)
 
-    def run(state, a_d, b_d, wG, wH, table, q_scale):
+    def run(state, a_d, b_d, wG, wH, table, q_scale=None):
         xs, ys, iids = [], [], []
         for cur, recL, recR in rounds:
             half = cur // 2
@@ -181,12 +314,12 @@ def fused_ipp_body(n: int, device):
             hi_r = hi[None]
             sL = limb.mod_mul(torch.where(hi_r, wG, wH), torch.where(hi_r, aL_of, bR_of), FR)
             sR = limb.mod_mul(torch.where(hi_r, wH, wG), torch.where(hi_r, bL_of, aR_of), FR)
-            cq_L = limb.mod_mul(c_L, q_scale, FR)
-            cq_R = limb.mod_mul(c_R, q_scale, FR)
-            s4L = msm_mod.split_scalars_device(torch.cat([sL, cq_L], dim=-1))
-            s4R = msm_mod.split_scalars_device(torch.cat([sR, cq_R], dim=-1))
-            LR = msm_mod._msm_multi_table_impl([(s4L, recL), (s4R, recR)], table,
-                                               msm_mod.SPLIT_WINDOW)
+            if table_gens:
+                sL = msm_mod.split_scalars_device(torch.cat([sL, limb.mod_mul(c_L, q_scale, FR)], -1))
+                sR = msm_mod.split_scalars_device(torch.cat([sR, limb.mod_mul(c_R, q_scale, FR)], -1))
+            else:
+                sL, sR = torch.cat([sL, c_L], dim=-1), torch.cat([sR, c_R], dim=-1)
+            LR = msm_mod._msm_multi_table_impl([(sL, recL), (sR, recR)], table, c, bits)
 
             x, y, iid = tj.lazy_points_to_affine(LR)
             enc = tj.points_transcript_bytes(x, y, iid)       # (64, 2)

@@ -5,7 +5,7 @@ entry points, which run the whole protocol on the card
 Verification replays the transcript and derives the scalars on the host
 (:meth:`RangeProof._verification_terms`), then checks one MSM over
 ``[A, S, T_1, T_2, V.., B, B~, L.., R..] + G + H`` on the card
-(:func:`...ops.backend.dispatch_msm`), with G and H from the device
+(:func:`...ops.backend.gens_msm`), with G and H from the device
 generator cache the prover fills.
 
 Proof layout: ``{A, S, T_1, T_2, t(x), ~t(x), ~e}`` followed by the IPP,
@@ -18,33 +18,15 @@ from __future__ import annotations
 import secrets
 from dataclasses import dataclass
 
-import torch
-
 from ...constants import SCALAR_BYTES, STARK_POINT_BYTES
 from ...generators import BulletproofGens, PedersenGens
-from ...ops import backend, curve_t
+from ...ops import backend
 from ...ops.curve import StarkPoint
 from ...ops.field import Scalar, sum_of_powers
 from ...transcript import HashChainTranscript
 from ...utils.device import resolve_device
 from ...utils.errors import FormatError, VerificationError
 from ..inner_product import InnerProductProof
-
-
-def _mega_check(bp_gens: BulletproofGens, n: int, m: int, scalars, points, device) -> StarkPoint:
-    """One MSM of ``scalars`` over ``points + G(n, m) + H(n, m)``.  The route
-    is chosen by size before anything moves: below ``_DEVICE_MIN`` points the
-    host Pippenger over the host generators, the card untouched; else the
-    host points go to the device once and meet the cached generator tensor."""
-    from .fused_device import _device_gens
-
-    dev = resolve_device(device)
-    if len(scalars) < backend._DEVICE_MIN:
-        pts = list(points) + bp_gens.G(n, m) + bp_gens.H(n, m)
-    else:
-        G, H = _device_gens(bp_gens, n, m, dev)
-        pts = torch.cat([torch.as_tensor(curve_t.points_from_host(points), device=dev), G, H], dim=-1)
-    return backend.dispatch_msm(scalars, pts, device=dev)
 
 
 @dataclass
@@ -116,8 +98,8 @@ class RangeProof:
         dev = resolve_device(device)
         (g_scalars, h_scalars), scalars, points = self._verification_terms(
             bp_gens, pc_gens, transcript, value_commitments, n)
-        mega = _mega_check(bp_gens, n, len(value_commitments), scalars + g_scalars + h_scalars,
-                           points, dev)
+        mega = backend.gens_msm(bp_gens, scalars + g_scalars + h_scalars, points, n,
+                                len(value_commitments), device=dev)
         if not mega.is_identity():
             raise VerificationError("range proof failed verification")
 
@@ -260,8 +242,8 @@ class RangeProof:
                 else:
                     uniq_scalars.append(rho * sc % MOD)
                     uniq_points.append(pt)
-        mega = _mega_check(bp_gens, n, m, uniq_scalars + [b_acc, bb_acc] + g_acc + h_acc,
-                           uniq_points + [pc_gens.B, pc_gens.B_blinding], dev)
+        mega = backend.gens_msm(bp_gens, uniq_scalars + [b_acc, bb_acc] + g_acc + h_acc,
+                                uniq_points + [pc_gens.B, pc_gens.B_blinding], n, m, device=dev)
         if not mega.is_identity():
             raise VerificationError("batch verification failed")
 

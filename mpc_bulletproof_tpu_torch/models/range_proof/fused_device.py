@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from ...constants import R
-from ...generators import BulletproofGens, PedersenGens, device_point_table
+from ...generators import (BulletproofGens, PedersenGens, device_gens, device_point_table,
+                           gens_cache_entry)
 from ...ops.curve import StarkPoint
 from ...ops.field import Scalar
 from ...ops.keccak import pad_label
@@ -30,41 +31,15 @@ from ...utils.device import resolve_device
 from ...utils.errors import MPCError
 from ..inner_product import InnerProductProof, fused_ipp_body
 
-# Device generator tensors per gens object: keyed by id() with a strong
-# reference held beside, so a recycled id never aliases another object.
-_GENS_CACHE: dict = {}
-
-
-def _gens_entry(obj) -> dict:
-    ref, per = _GENS_CACHE.setdefault(id(obj), (obj, {}))
-    if ref is not obj:
-        raise RuntimeError("generator cache entry aliases another object")
-    return per
-
-
-def _device_gens(bp_gens: BulletproofGens, n: int, m: int, device):
-    """Aggregated ``(G, H)`` as ``(3, NW, nm)`` tensors on ``device``."""
-    from ...ops import curve_t
-
-    per = _gens_entry(bp_gens)
-    key = ("gens", n, m, str(device))
-    if key not in per:
-        per[key] = tuple(
-            torch.as_tensor(curve_t.points_from_host(pts), device=device)
-            for pts in (bp_gens.G(n, m), bp_gens.H(n, m))
-        )
-    return per[key]
-
-
 def _device_split_table(bp_gens: BulletproofGens, pc_gens: PedersenGens, n: int, m: int, device):
     """Split table of ``[G(nm) | H(nm) | B]``: ``(3, NW, 4 (2nm + 1) + 1)``."""
     from ...ops import curve_t
     from ...ops import msm as msm_mod
 
-    per = _gens_entry(bp_gens)
+    per = gens_cache_entry(bp_gens)
     key = ("split", n, m, id(pc_gens), str(device))
     if key not in per:
-        G, H = _device_gens(bp_gens, n, m, device)
+        G, H = device_gens(bp_gens, n, m, device)
         B = torch.as_tensor(curve_t.points_from_host([pc_gens.B]), device=device)
         per[key] = msm_mod.build_split_affine_table(torch.cat([G, H, B], dim=-1))
     return per[key]
@@ -72,7 +47,7 @@ def _device_split_table(bp_gens: BulletproofGens, pc_gens: PedersenGens, n: int,
 
 def _device_pc(pc_gens: PedersenGens, device):
     """Fixed-base tables ``[B rows | B_blinding rows]``."""
-    per = _gens_entry(pc_gens)
+    per = gens_cache_entry(pc_gens)
     key = ("pc", str(device))
     if key not in per:
         per[key] = torch.cat([device_point_table(pc_gens.B, device),
@@ -90,7 +65,7 @@ def _program(n: int, m: int, device):
     from ...ops.limb import FR, NW
 
     nm = n * m
-    ipp_run = fused_ipp_body(nm, device)
+    ipp_run = fused_ipp_body(nm, device, table_gens=True)
     rec_S = torch.as_tensor(
         msm_mod.split_record_indices(np.arange(2 * nm), 2 * nm + 1), device=device)
     exp2 = torch.as_tensor(np.concatenate([limb.ints_to_words([1 << i for i in range(n)])] * m,
@@ -259,7 +234,7 @@ def prove_multiple_device(
         t2b.append(rand())
 
     bits = np.array([(int(v) >> i) & 1 for v in values for i in range(n)], dtype=np.int64)
-    G_dev, H_dev = _device_gens(bp_gens, n, m, device)
+    G_dev, H_dev = device_gens(bp_gens, n, m, device)
     fb_table = _device_pc(pc_gens, device)
     split_table = _device_split_table(bp_gens, pc_gens, n, m, device)
 

@@ -1,12 +1,14 @@
 """Routing of the protocol MSMs between the device and the host.
 
-:func:`dispatch_msm` is the one MSM entry point of the verifiers (the
-range-proof mega-check, the IPP check).  Host points: from
-:data:`_DEVICE_MIN` on it runs :func:`.msm.msm_host_points` on ``device``,
-below that the host Pippenger (``StarkPoint.msm``).  A point tensor is
-already on the device and always takes the device MSM.  This is a routing
-by size, the JAX package's own (``mpc_bulletproof_tpu/ops/backend.py``),
-not a fallback: a card asked for and missing raises whatever the size.
+:func:`dispatch_msm` is the one MSM entry point of the protocols.  Host
+points: from :data:`_DEVICE_MIN` on it runs :func:`.msm.msm_host_points` on
+``device``, below that the host Pippenger (``StarkPoint.msm``).  A point
+tensor is already on the device and always takes the device MSM.
+:func:`gens_msm` serves the MSMs over the Bulletproof generators (the
+range-proof and R1CS mega-checks, the R1CS phase MSMs): it picks the route
+by size before anything moves.  This is a routing by size, the JAX
+package's own (``mpc_bulletproof_tpu/ops/backend.py``), not a fallback: a
+card asked for and missing raises whatever the size.
 """
 
 from __future__ import annotations
@@ -35,3 +37,24 @@ def dispatch_msm(scalars, points, *, device="cuda") -> StarkPoint:
     if isinstance(points, torch.Tensor) or n >= _DEVICE_MIN:
         return msm_mod.msm_host_points(scalars, points, device=dev)
     return StarkPoint.msm(scalars, points)
+
+
+def gens_msm(bp_gens, scalars, lead, n: int, m: int = 1, *, lo: int = 0, with_h: bool = True,
+             device="cuda") -> StarkPoint:
+    """``sum scalars * (lead + G(n, m)[lo:] + H(n, m)[lo:])`` over the
+    aggregated generators of ``bp_gens`` (H only ``with_h``).  Below
+    :data:`_DEVICE_MIN` points the host Pippenger over the host generators,
+    the card untouched; else the ``lead`` host points go to ``device`` once
+    and meet the cached generator tensor (:func:`..generators.device_gens`)."""
+    from .. import generators
+    from . import curve_t
+
+    dev = resolve_device(device)
+    if len(scalars) < _DEVICE_MIN:
+        pts = list(lead) + bp_gens.G(n, m)[lo:] + (bp_gens.H(n, m)[lo:] if with_h else [])
+        return dispatch_msm(scalars, pts, device=dev)
+    G, H = generators.device_gens(bp_gens, n, m, dev)
+    parts = [torch.as_tensor(curve_t.points_from_host(lead), device=dev), G[..., lo:]]
+    if with_h:
+        parts.append(H[..., lo:])
+    return dispatch_msm(scalars, torch.cat(parts, dim=-1), device=dev)

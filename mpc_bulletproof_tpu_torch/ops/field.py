@@ -76,6 +76,9 @@ class Scalar:
 
     __rmul__ = __mul__
 
+    def is_zero(self) -> bool:
+        return self.value == 0
+
     def __neg__(self) -> "Scalar":
         return Scalar(-self.value)
 
@@ -123,6 +126,18 @@ class Scalar:
             inv = inv * values[i].value % R
         out[0] = Scalar(inv)
         return out
+
+
+def inner_product(a: Sequence[Scalar], b: Sequence[Scalar]) -> Scalar:
+    """``<a, b>`` over the scalar field."""
+    if len(a) != len(b):
+        raise ValueError("inner_product(a,b): lengths of vectors do not match")
+    return Scalar(sum(x.value * y.value for x, y in zip(a, b)))
+
+
+def add_vec(a: Sequence[Scalar], b: Sequence[Scalar]) -> list[Scalar]:
+    """Elementwise sum."""
+    return [x + y for x, y in zip(a, b)]
 
 
 def sum_of_powers(x: Scalar, n: int) -> Scalar:

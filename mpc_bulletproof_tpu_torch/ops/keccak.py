@@ -3,8 +3,9 @@
 The Fiat-Shamir transcript and the generator chains are keccak256 hash
 chains: rate 136 bytes, capacity 512, padding ``0x01 .. 0x80`` (not the
 NIST SHA3 ``0x06``).  :func:`keccak256` is the pure-Python reference;
-:func:`keccak256_batch32` hashes many 32-byte messages at once with numpy
-``uint64`` lanes (the generator chains walk 2m chains side by side).
+:func:`keccak256_batch` hashes many one-block messages at once with numpy
+``uint64`` lanes (the generator chains walk 2m chains side by side; the
+R1CS prover's RNG draws its counter blocks together).
 """
 
 from __future__ import annotations
@@ -108,12 +109,22 @@ def _keccak_f1600_np(a: np.ndarray) -> np.ndarray:
     return a
 
 
-def keccak256_batch32(msgs: np.ndarray) -> np.ndarray:
-    """Keccak-256 of ``k`` 32-byte messages: ``(k, 32)`` uint8 -> ``(k, 32)``."""
-    k = msgs.shape[0]
+def keccak256_batch(msgs: np.ndarray) -> np.ndarray:
+    """Keccak-256 of ``k`` messages of one length ``L < 136`` bytes (one
+    block each): ``(k, L)`` uint8 -> ``(k, 32)``."""
+    k, length = msgs.shape
+    if length >= _RATE:
+        raise ValueError("keccak256_batch: messages must fit one block")
+    block = np.zeros((k, _RATE), dtype=np.uint8)
+    block[:, :length] = msgs
+    block[:, length] ^= 0x01
+    block[:, _RATE - 1] ^= 0x80
     a = np.zeros((25, k), dtype=np.uint64)
-    a[0:4] = np.ascontiguousarray(msgs, dtype=np.uint8).view("<u8").T
-    a[4] = np.uint64(0x01)
-    a[16] = np.uint64(0x80 << 56)
+    a[0 : _RATE // 8] = block.view("<u8").T
     a = _keccak_f1600_np(a)
     return np.ascontiguousarray(a[0:4].T.astype("<u8")).view(np.uint8).reshape(k, 32)
+
+
+def keccak256_batch32(msgs: np.ndarray) -> np.ndarray:
+    """Keccak-256 of ``k`` 32-byte messages: ``(k, 32)`` uint8 -> ``(k, 32)``."""
+    return keccak256_batch(np.ascontiguousarray(msgs, dtype=np.uint8))

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels, their wrappers and their plain versions.
 
-Seven kernels carry the point, inverse and vector field work.  Each
-replaces one Pallas kernel of ``mpc_bulletproof_tpu/ops/kernels.py``:
+Ten kernels.  Seven carry the point, inverse and vector field work, each
+replacing one Pallas kernel of ``mpc_bulletproof_tpu/ops/kernels.py``:
 
 ==============================  =======================  =======================
 wrapper                         CUDA source (``csrc/``)  replaces
@@ -15,10 +15,14 @@ wrapper                         CUDA source (``csrc/``)  replaces
 ``vec_mul/vec_add/vec_sub``     ``vec2.cu``              ``_vec2``
 ==============================  =======================  =======================
 
-The prover and the verifiers launch ``point_add``, ``point_scan_steps_inner``,
+Three more, ``probe_chain``, ``probe_xor_chain`` and ``probe_accum``
+(``probes.cu``, wrappers in :mod:`.probes`), replace the Pallas op-rate
+probes of the JAX package's benches.
+
+The provers and the verifiers launch ``point_add``, ``point_scan_steps_inner``,
 ``point_horner_multi``, ``point_reduce`` and ``mod_pow_static``;
-``point_scan_steps`` and the vector ops serve callers of the library (the
-JAX package calls them only from its benches).
+``point_scan_steps``, the vector ops and the probes serve callers of the
+library (the JAX package calls them only from its benches).
 
 Every wrapper checks dtype, shape and contiguity the same way for every
 device.  For a tensor on the CPU it runs the plain PyTorch version beside
@@ -64,6 +68,9 @@ KERNELS = {
     "point_reduce": ("point_reduce.cu", "bp_point_reduce", [_P, _P, _LL, _P]),
     "mod_pow_static": ("mod_pow.cu", "bp_mod_pow", [_P, _P, _LL, _U, _U, _U, _U, _I, _P]),
     "vec2": ("vec2.cu", "bp_vec2", [_P, _P, _P, _LL, _LL, _I, _I, _P]),
+    "probe_chain": ("probes.cu", "bp_probe_chain", [_P, _P, _P, _LL, _I, _I, _P]),
+    "probe_xor_chain": ("probes.cu", "bp_probe_xor_chain", [_P, _P, _LL, _I, _I, _P]),
+    "probe_accum": ("probes.cu", "bp_probe_accum", [_P, _P, _P, _LL, _I, _I, _P]),
 }
 
 # Launches per kernel since the last reset_launches(); only a launch of the

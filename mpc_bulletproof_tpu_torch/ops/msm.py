@@ -347,10 +347,14 @@ def _msm_multi_table_impl(parts, table: torch.Tensor, c: int,
                           bits: int = SPLIT_CHUNK_BITS) -> torch.Tensor:
     """``k`` same-width MSMs against one table -> ``(3, NW, k)``.
 
-    ``parts``: list of ``(scalars, recs)``, ``(NW, n)`` chunk scalars and the
-    ``(n,)`` table records of their points.  The k MSMs share one sort, one
-    bucket phase (their windows side by side) and one Horner combine with
-    the k outputs on the lane axis."""
+    ``parts``: list of ``(scalars, recs)``, ``(NW, n)`` ``bits``-bit scalars
+    and the ``(n,)`` table records of their points; the table's last record
+    is the identity.  The k MSMs share one sort, one bucket phase (their
+    windows side by side) and one Horner combine with the k outputs on the
+    lane axis.  The range prover runs it on 64-bit chunks against the split
+    table; the general IPP prover runs each round's L/R pair on 252-bit
+    scalars against ``[G | H | Q | identity]`` (the JAX package's
+    ``_msm_batched_pair_impl``)."""
     k = len(parts)
     n = parts[0][0].shape[-1]
     digits = torch.cat([_signed_digits(s, c, bits) for s, _ in parts])  # (k nw, n)

@@ -9,15 +9,23 @@ byte:
 * scalars absorb as 32 LE bytes, points as ``x || y`` LE felts (identity =
   64 zero bytes), challenges map to scalars through :func:`hash_to_scalar`.
 
-The fused prover runs the same chain on the card
-(:mod:`.ops.transcript_t`) and writes the final state back here.
+The fused provers run the same chain on the card
+(:mod:`.ops.transcript_t`) and write the final state back here.  The R1CS
+prover draws its blindings from :meth:`HashChainTranscript.build_rng`, a
+counter-mode keccak RNG keyed by the transcript, the witness and fresh
+entropy.
 """
 
 from __future__ import annotations
 
+import secrets
+
+import numpy as np
+
+from .constants import R
 from .ops.curve import StarkPoint, stark_point_to_transcript_bytes
 from .ops.field import Scalar
-from .ops.keccak import keccak256, pad_label
+from .ops.keccak import keccak256, keccak256_batch, pad_label
 from .utils.errors import ProofError
 
 
@@ -35,6 +43,11 @@ class HashChainTranscript:
 
     def __init__(self, label: bytes = b""):
         self.state = keccak256(pad_label(label))
+
+    def clone(self) -> "HashChainTranscript":
+        t = HashChainTranscript.__new__(HashChainTranscript)
+        t.state = self.state
+        return t
 
     def append_message(self, label: bytes, message: bytes) -> None:
         self.state = keccak256(self.state + pad_label(label) + message)
@@ -55,6 +68,15 @@ class HashChainTranscript:
         self.append_message(b"dom-sep", pad_label(b"ipp v1"))
         self.append_u64(b"n", n)
 
+    def r1cs_domain_sep(self) -> None:
+        self.append_message(b"dom-sep", pad_label(b"r1cs v1"))
+
+    def r1cs_1phase_domain_sep(self) -> None:
+        self.append_message(b"dom-sep", pad_label(b"r1cs-1phase"))
+
+    def r1cs_2phase_domain_sep(self) -> None:
+        self.append_message(b"dom-sep", pad_label(b"r1cs-2phase"))
+
     def append_scalar(self, label: bytes, scalar: Scalar) -> None:
         self.append_message(label, bytes(reversed(scalar.to_bytes_be())))
 
@@ -69,3 +91,56 @@ class HashChainTranscript:
 
     def challenge_scalar(self, label: bytes) -> Scalar:
         return hash_to_scalar(self.challenge_bytes(label))
+
+    def build_rng(self) -> "TranscriptRngBuilder":
+        """A builder for an RNG seeded by the transcript state."""
+        return TranscriptRngBuilder(self.state)
+
+
+class TranscriptRngBuilder:
+    """Rekeys the transcript-seeded state with witness bytes, then with
+    entropy (``finalize``)."""
+
+    __slots__ = ("state",)
+
+    def __init__(self, state: bytes):
+        self.state = state
+
+    def rekey_with_witness_bytes(self, label: bytes, witness: bytes) -> "TranscriptRngBuilder":
+        self.state = keccak256(self.state + pad_label(label) + witness)
+        return self
+
+    def finalize(self, entropy: bytes | None = None) -> "TranscriptRng":
+        """The RNG keyed by the state and 32 bytes of ``entropy``
+        (``secrets`` when none is given)."""
+        if entropy is None:
+            entropy = secrets.token_bytes(32)
+        return TranscriptRng(keccak256(self.state + entropy))
+
+
+class TranscriptRng:
+    """Counter-mode keccak RNG: block i is ``keccak256(state || i as u64 LE)``."""
+
+    __slots__ = ("state", "counter")
+
+    def __init__(self, state: bytes):
+        self.state = state
+        self.counter = 0
+
+    def randbytes(self, n: int) -> bytes:
+        """The next ``n`` bytes: whole blocks, all hashed in one batch."""
+        nblocks = (n + 31) // 32
+        if nblocks == 0:
+            return b""
+        ctr = np.arange(self.counter, self.counter + nblocks, dtype="<u8").view(np.uint8)
+        msgs = np.concatenate([np.tile(np.frombuffer(self.state, np.uint8), (nblocks, 1)),
+                               ctr.reshape(nblocks, 8)], axis=1)
+        self.counter += nblocks
+        return keccak256_batch(msgs).tobytes()[:n]
+
+    def random_scalar(self) -> Scalar:
+        return Scalar(int.from_bytes(self.randbytes(48), "big") % R)
+
+    def random_scalars(self, k: int) -> list[Scalar]:
+        raw = self.randbytes(48 * k)
+        return [Scalar(int.from_bytes(raw[48 * i : 48 * (i + 1)], "big")) for i in range(k)]

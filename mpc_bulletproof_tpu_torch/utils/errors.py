@@ -1,5 +1,5 @@
 """Error classes of the port (the subset of the JAX package's taxonomy that
-the range prover, its verifier and the proof codecs raise)."""
+the range and R1CS provers, their verifiers and the proof codecs raise)."""
 
 from __future__ import annotations
 
@@ -22,3 +22,19 @@ class FormatError(ProofError):
 
 class MPCError(BulletproofError):
     """Errors of the party/dealer protocol (sizes, counts)."""
+
+
+class R1CSError(BulletproofError):
+    """Errors of the constraint-system API."""
+
+
+class MissingAssignmentError(R1CSError):
+    """A prover-side variable was allocated without an assignment."""
+
+
+class InvalidGeneratorsLengthError(R1CSError):
+    """The ``BulletproofGens`` capacity is smaller than the circuit needs."""
+
+
+class GadgetError(R1CSError):
+    """A gadget failed to build its constraints."""

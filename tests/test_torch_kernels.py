@@ -8,11 +8,20 @@ vec_add, vec_sub), against its plain references
 elements are compared in affine form, field elements as integers.  The
 kernels themselves run only on the card: the tests marked ``cuda`` hold
 each one against its plain version there and skip elsewhere.
+
+The op-rate probes (ops/probes.py) are held against the TPU benches they
+replace: ``benches/tpu_mul_bench.py``'s ``make_kernel`` runs in interpret
+mode off the TPU; ``benches/micro_vpu.py`` and ``benches/micro_mul.py``
+have no interpret flag, so their kernel bodies are restated in ``jnp``
+around the benches' op lambdas, at small repetition counts.
 """
 
 import ctypes
 import gc
+import importlib.util
 import os
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -27,7 +36,7 @@ from mpc_bulletproof_tpu.ops import field as jfield
 from mpc_bulletproof_tpu.ops import kernels as jkernels
 from mpc_bulletproof_tpu.ops import limb as jlimb
 from mpc_bulletproof_tpu_torch import convert
-from mpc_bulletproof_tpu_torch.ops import curve_t, kernels
+from mpc_bulletproof_tpu_torch.ops import curve_t, kernels, probes
 from mpc_bulletproof_tpu_torch.ops.limb import (FP, FR, NW, ints_to_words, mod_add, mod_mul, mod_sub,
                                                 words_to_ints)
 
@@ -194,6 +203,165 @@ def test_wrappers_reject_bad_operands():
         kernels.vec_add(x, x, object())                               # FP or FR only
 
 
+# ---------------------------------------------------------------------------
+# op-rate probes
+# ---------------------------------------------------------------------------
+
+BENCHES = pathlib.Path(__file__).resolve().parent.parent / "benches"
+PROBE_CHECK_REPS = 16
+
+
+def _load_bench(name: str, argv: list[str]):
+    """Import ``benches/<name>.py`` by path, with ``sys.argv`` set for the
+    import (tpu_mul_bench reads REPS from it) and the environment and
+    ``sys.path`` restored after."""
+    spec = importlib.util.spec_from_file_location(f"_bench_{name}", BENCHES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys, "argv", argv)
+        mp.setattr(sys, "path", list(sys.path))
+        mp.setattr(os, "environ", dict(os.environ))
+        spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def tpu_mul_bench():
+    return _load_bench("tpu_mul_bench", ["tpu_mul_bench.py", str(PROBE_CHECK_REPS)])
+
+
+@pytest.fixture(scope="module")
+def micro_vpu():
+    return _load_bench("micro_vpu", ["micro_vpu.py"])
+
+
+@pytest.fixture(scope="module")
+def micro_mul():
+    return _load_bench("micro_mul", ["micro_mul.py"])
+
+
+# the op lambdas benches/tpu_mul_bench.py:70-83 passes to make_kernel, in order
+TPU_MUL_OPS = [
+    lambda a, y: a * y,
+    lambda a, y: a * y + y,
+    lambda a, y: a + y,
+    lambda a, y: (a & 0x1FFF) + (a >> 13) + y,
+    lambda a, y: a * y,
+    lambda a, y: a * y + y,
+    lambda a, y: a + y,
+    lambda a, y: a - jnp.floor(a * (1.0 / 512.0)) * 512.0 + y,
+]
+
+# the op lambdas benches/micro_mul.py:125-135 passes to bench_vpu, in order
+MICRO_MUL_OPS = [
+    lambda a, b: a * b,
+    lambda a, b: a + b,
+    lambda a, b: (a >> 7) & 0x3F,
+    lambda a, b: a * b,
+    lambda a, b: a * b + a,
+    lambda a, b: (a & 0xFFFF) * (b & 0xFFFF),
+    lambda a, b: ((a << 16) >> 16) * ((b << 16) >> 16),
+    lambda a, b: (a & 0xFFFF) * b,
+]
+
+
+def _same(got: torch.Tensor, want) -> None:
+    """Bit for bit, NaN equal to NaN (NaN payloads may differ)."""
+    want = torch.as_tensor(np.array(want))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.is_floating_point():
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("op", probes.CHAIN_OPS)
+def test_probe_chain_matches_tpu_mul_bench(tpu_mul_bench, op):
+    """``make_kernel(dtype, op)`` in interpret mode, REPS = 16, on the
+    bench's (8, 512) tile and inputs (int32 in [1, 2^12), the same values
+    as float32)."""
+    rng = np.random.default_rng(0)
+    xi = rng.integers(1, 1 << 12, tpu_mul_bench.SHAPE, dtype=np.int32)
+    yi = rng.integers(1, 1 << 12, tpu_mul_bench.SHAPE, dtype=np.int32)
+    dt = probes.op_dtype(op)
+    jdt = jnp.int32 if dt == torch.int32 else jnp.float32
+    x, y = (v.astype(np.float32) if dt == torch.float32 else v for v in (xi, yi))
+    want = tpu_mul_bench.make_kernel(jdt, TPU_MUL_OPS[probes.CHAIN_OPS.index(op)])(
+        jnp.asarray(x), jnp.asarray(y))
+    got = probes.probe_chain(op, torch.as_tensor(x), torch.as_tensor(y), PROBE_CHECK_REPS)
+    if op != "f32_mul_add":
+        _same(got, want)
+        return
+    # XLA on the CPU contracts the kernel's a * y + y into one FMA (one
+    # rounding) in some lanes; the probe rounds twice, as numpy's float32
+    # operations do.  So: exact against numpy, and against the bench's kernel
+    # within one rounding (2^-23 relative) per step.
+    ref = x.copy()
+    with np.errstate(over="ignore"):
+        for _ in range(PROBE_CHECK_REPS):
+            ref = ref * y + y
+    _same(got, ref)
+    torch.testing.assert_close(got, torch.as_tensor(np.array(want)), rtol=PROBE_CHECK_REPS * 2.0**-23,
+                               atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("op", probes.XOR_OPS)
+def test_probe_xor_chain_matches_micro_vpu(micro_vpu, op):
+    """The bench's ``OPS[op]`` in its kernel body's chain (micro_vpu.py:37-45):
+    ``acc = op(acc, x) ^ i`` or ``op(acc, x) + float(i & 3)``, over two of
+    its (8, 256) blocks, x int32 in [1, 8191) or float32 in [0.5, 1.5)."""
+    fn, jdt = micro_vpu.OPS[op]
+    rng = np.random.default_rng(1)
+    shape = (2, micro_vpu.SUB, micro_vpu.LANE)
+    if jdt == jnp.int32:
+        x = rng.integers(1, 8191, shape, dtype=np.int32)
+    else:
+        x = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+    acc = jnp.asarray(x)
+    for i in range(PROBE_CHECK_REPS):
+        acc = fn(acc, jnp.asarray(x)) ^ i if jdt == jnp.int32 else fn(acc, jnp.asarray(x)) + float(i & 3)
+    _same(probes.probe_xor_chain(op, torch.as_tensor(x), PROBE_CHECK_REPS), acc)
+
+
+@pytest.mark.parametrize("op", probes.ACCUM_OPS)
+def test_probe_accum_matches_micro_mul(micro_mul, op):
+    """The bench's op lambdas in its kernel body (micro_mul.py:45-52):
+    ``acc = acc + op(a + i, b)`` (float32: ``op(a, b)``) for i < REP = 64,
+    over two of its (8, 128) blocks, a and b in [0, 2^13); some int32 lanes
+    at the edges (2^31 - 1, -1, -2^31) so the wraps and the sign
+    extension are exercised."""
+    dt = probes.op_dtype(op)
+    rng = np.random.default_rng(2)
+    shape = (2, micro_mul.SUB, micro_mul.LANE)
+    a = rng.integers(0, 1 << 13, shape).astype(np.int32)
+    b = rng.integers(0, 1 << 13, shape).astype(np.int32)
+    a[0, 0, :4] = [2**31 - 1, -1, -(2**31), 0xFFFF]
+    b[0, 0, :4] = [-5, 0x8000, 0x7FFF, -1]
+    jdt = jnp.int32 if dt == torch.int32 else jnp.float32
+    if jdt == jnp.float32:
+        a, b = a.astype(np.float32), b.astype(np.float32)
+    fn = MICRO_MUL_OPS[probes.ACCUM_OPS.index(op)]
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    acc = jnp.zeros_like(ja)
+    for i in range(micro_mul.REP):
+        acc = acc + fn(ja + i if jdt == jnp.int32 else ja, jb)
+    _same(probes.probe_accum(op, torch.as_tensor(a), torch.as_tensor(b), micro_mul.REP), acc)
+
+
+def test_probe_wrappers_reject_bad_operands():
+    xi = torch.ones((8, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        probes.probe_chain("i64_mul", xi, xi)                            # not a bench op
+    with pytest.raises(TypeError):
+        probes.probe_chain("f32_mul", xi, xi)                            # float32 op, int32 data
+    with pytest.raises(ValueError):
+        probes.probe_accum("i32_mul", xi, xi[:4].contiguous())          # shapes differ
+    with pytest.raises(ValueError):
+        probes.probe_xor_chain("i32_add", xi.t(), 4)                     # not contiguous
+    with pytest.raises(ValueError):
+        probes.probe_xor_chain("i32_add", xi, -1)                        # negative count
+
+
 def _random_points_t(k: int, seed: int, dev):
     pts = _jax_points(k, seed)
     return convert.points_from_jax(cj.points_from_host(pts), device=dev)
@@ -225,8 +393,30 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
         got, want = kernels.point_horner_multi(w, 9), kernels.point_horner_plain(w, 9)
     elif name == "point_reduce":
         got, want = kernels.point_reduce(a), kernels.point_reduce_plain(a)
-    else:
+    elif name == "mod_pow_static":
         x = a[0].contiguous()
         got, want = kernels.mod_pow_static(x, FP.modulus - 2, FP), kernels.mod_pow_plain(x, FP.modulus - 2, FP)
+    else:
+        _probes_match_plain_on_card(name, dev)
+        return
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _probes_match_plain_on_card(name: str, dev) -> None:
+    """Every op of one probe kernel at a small shape, against its plain version."""
+    rng = np.random.default_rng(5)
+    xi = torch.as_tensor(rng.integers(1, 1 << 12, (4, 8, 64), dtype=np.int32), device=dev)
+    yi = torch.as_tensor(rng.integers(1, 1 << 12, (4, 8, 64), dtype=np.int32), device=dev)
+    ops = {"probe_chain": probes.CHAIN_OPS, "probe_xor_chain": probes.XOR_OPS,
+           "probe_accum": probes.ACCUM_OPS}[name]
+    for op in ops:
+        x, y = (xi, yi) if probes.op_dtype(op) == torch.int32 else (xi.float(), yi.float() / 4096)
+        if name == "probe_chain":
+            got, want = probes.probe_chain(op, x, y, 100), probes.chain_plain(op, x, y, 100)
+        elif name == "probe_xor_chain":
+            got, want = probes.probe_xor_chain(op, x, 100), probes.xor_chain_plain(op, x, 100)
+        else:
+            got, want = probes.probe_accum(op, x, y, 64), probes.accum_plain(op, x, y, 64)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)

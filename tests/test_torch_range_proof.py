@@ -21,7 +21,7 @@ from mpc_bulletproof_tpu.models.range_proof.party import Party as JParty
 from mpc_bulletproof_tpu.ops import curve_jax as cj
 from mpc_bulletproof_tpu_torch import (BulletproofGens, HashChainTranscript, PedersenGens,
                                        RangeProof, convert, pinned)
-from mpc_bulletproof_tpu_torch.models.range_proof import fused_device
+from mpc_bulletproof_tpu_torch import generators
 from mpc_bulletproof_tpu_torch.utils.errors import MPCError
 
 # Under pytest-xdist several worker processes share the cores: split them,
@@ -85,7 +85,7 @@ def test_generators_match_jax(port_82):
     for mine, theirs in ((bp_gens.G(8, 2), j_gens.G(8, 2)), (bp_gens.H(8, 2), j_gens.H(8, 2))):
         assert [(p.x, p.y) for p in mine] == [(p.x, p.y) for p in theirs]
     # the device tensors the prover caches equal the JAX package's arrays, carried across
-    G_dev, H_dev = fused_device._device_gens(bp_gens, 8, 2, torch.device("cpu"))
+    G_dev, H_dev = generators.device_gens(bp_gens, 8, 2, torch.device("cpu"))
     assert torch.equal(G_dev, convert.points_from_jax(cj.points_from_host(j_gens.G(8, 2))))
     assert torch.equal(H_dev, convert.points_from_jax(cj.points_from_host(j_gens.H(8, 2))))
 
@@ -136,7 +136,12 @@ def test_port_never_imports_jax_or_the_jax_package():
     """Every import statement of every port module and of chip_smoke.py
     (function-level ones included) names neither jax nor the JAX package."""
     files = sorted((ROOT / "mpc_bulletproof_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 25
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for module in ("ops/probes.py", "ops/poly.py", "models/r1cs/prover.py", "models/r1cs/verifier.py",
+                   "models/r1cs/proof.py", "models/r1cs/gadgets.py", "models/r1cs/constraint_system.py",
+                   "models/r1cs/linear_combination.py"):
+        assert f"mpc_bulletproof_tpu_torch/{module}" in names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]

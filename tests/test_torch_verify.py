@@ -103,7 +103,7 @@ def test_verify_multiple_matches_jax(rp82, case):
 def test_prove_and_verify_single_match_jax(rp82, monkeypatch):
     """m = 1: the mega-check has 29 points and takes the host route over the
     host generators: neither the generator tensor nor the device MSM."""
-    from mpc_bulletproof_tpu_torch.models.range_proof import fused_device
+    from mpc_bulletproof_tpu_torch import generators
     from mpc_bulletproof_tpu_torch.ops import msm
 
     j_proof, j_V, j_state, j_gens = jax_host_prove(N, 1)
@@ -113,7 +113,7 @@ def test_prove_and_verify_single_match_jax(rp82, monkeypatch):
                                        rng_bytes=pinned.det_stream())
     assert (proof.to_bytes(), V.to_bytes(), tr.state) == (j_proof.to_bytes(), j_V[0].to_bytes(), j_state)
     device_calls = []
-    for mod, name in ((fused_device, "_device_gens"), (msm, "msm_host_points")):
+    for mod, name in ((generators, "device_gens"), (msm, "msm_host_points")):
         orig = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _o=orig, **k: device_calls.append(name) or _o(*a, **k))
     for case in ("valid", "t_x+1"):
