@@ -14,8 +14,10 @@ Phases, one JSON object per line on standard output:
    the reduction at the aggregated m = 64 proof's, the ladder at the range
    and R1CS provers', ``point_scan_steps`` (which no
    path runs) at the prove scan's and the vector ops (no path either) at
-   (4, 4,096); worst-case lanes (identity, doubling, P + (-P), coordinates
-   near p, 0, 1, m - 1 and m - 2); equality is exact on the 64-bit words.
+   (4, 4,096); both scans also at ``PART_BLOCK_SCAN`` (a part-filled
+   last block of lanes); worst-case lanes (identity, doubling,
+   P + (-P), coordinates near p, 0, 1, m - 1 and m - 2); equality is
+   exact on the 64-bit words.
    Times by CUDA events around 20 back-to-back calls (``kernel_ms``, host
    launch gaps included), by torch.profiler's kernel rows (``device_ms``,
    the kernel alone), and of the one plain call checked (``plain_ms``).
@@ -48,8 +50,10 @@ Phases, one JSON object per line on standard output:
    the TPU shapes: each held bit for bit to its plain version (NaN equal to
    NaN), then timed at the full repetition counts (ms, Gop/s, the bound,
    the share of the card's resident threads the shape fills).
-9. the ``kernels`` summary with launches per path, the card's
-   ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": {...}}``.
+9. the ``kernels`` summary with launches per path (for the scans and
+   Horner also their ptxas registers and spills, launch configurations
+   and resident warps a scheduler), the card's ``nvidia-smi`` name and
+   power limit, and last ``{"ok": true, "device": {...}}``.
 
 Each path asserts that the kernels it must run were launched.
 
@@ -63,6 +67,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -77,7 +82,9 @@ MSM_LOG2N = 20
 VEC_N = 4096
 SHUFFLE_K = 1 << 10
 WARM_R1CS = 3
-RESIDENT_THREADS = 132 * 2048  # H100 SXM: 132 SMs of 2,048 resident threads
+SMS = 132
+RESIDENT_THREADS = SMS * 2048  # H100 SXM: 132 SMs of 2,048 resident threads
+PART_BLOCK_SCAN = (13, 1000)  # a scan shape (T, L) whose last block of 32 lanes is part-filled
 BASE_LANES = 1 << 16  # random points made with their own scaling; wider inputs draw from them
 
 # Bounds: NVIDIA's published H100 SXM rates (data sheet, dense, 700 W):
@@ -87,11 +94,11 @@ BASE_LANES = 1 << 16  # random points made with their own scaling; wider inputs 
 # gives a lower bound on the time (2 operations per 32-bit multiply-add).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-# Montgomery product on 4 x 64-bit words: 16 word products for a b plus the
-# reduction (4 for p = [1, 0, 0, 2^59 + 17] with m' = -1; 20 for r), each a
-# 64 x 64 -> 128 product of four 32-bit multiply-adds.
-FP_MUL_OPS = 2 * 4 * (16 + 4)
-FR_MUL_OPS = 2 * 4 * (16 + 20)
+# Montgomery product on 8 x 32-bit limbs: 64 limb products for a b plus the
+# reduction's u m (2 a round for p, whose limbs 0, 6 and 7 are nonzero and
+# limb 0 is 1; 8 a round for r), each one 32-bit multiply-add.
+FP_MUL_OPS = 2 * (64 + 8 * 2)
+FR_MUL_OPS = 2 * (64 + 8 * 8)
 POINT_ADD_OPS = 14 * FP_MUL_OPS  # 12 products + 2 by the constant 3b
 POINT_BYTES = 3 * 4 * 8
 # A modular sum or difference: a 4-word add (sub) with carries and a 4-word
@@ -136,6 +143,58 @@ def smi_line() -> str:
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_launch(L: int) -> dict:
+    """The launch ``csrc/point_scan.cu`` makes: one warp per 32 lanes."""
+    return {"grid": -(-L // 32), "block": [32, 1], "smem_bytes": 0}
+
+
+def horner_launch(k: int) -> dict:
+    """The launch ``csrc/point_horner.cu`` makes: one warp per output."""
+    return {"grid": k, "block": [32, 1], "smem_bytes": None}
+
+
+def scan_bound(T: int, L: int) -> tuple[float, str]:
+    """A prefix scan of T steps over L lanes: each point read and written
+    once, T - 1 adds a lane."""
+    return bound(2 * POINT_BYTES * T * L, (T - 1) * L * POINT_ADD_OPS)
+
+
+def ptxas_entries(log: str) -> dict:
+    """Per entry function of an ``nvcc -Xptxas -v`` report: registers and
+    spill bytes."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def warps_per_scheduler(registers: int, launch: dict) -> dict:
+    """Resident warps a scheduler (of the 4 an SM has) for a launch: the
+    blocks an SM holds by registers (allocated per warp in units of 256),
+    threads (2,048), blocks (32) and shared memory (228 KB, 1 KB reserved
+    a block), and how many of those this launch's grid fills."""
+    threads = launch["block"][0] * launch["block"][1]
+    warps = -(-threads // 32)
+    regs_per_warp = -(-registers * 32 // 256) * 256
+    smem = launch.get("smem_bytes") or 0
+    per_sm = min(65536 // (regs_per_warp * warps), 2048 // (warps * 32), 32,
+                 (228 * 1024) // (smem + 1024))
+    capacity = per_sm * warps / 4
+    return {"capacity": capacity,
+            "this_launch": min(capacity, launch["grid"] * warps / (SMS * 4))}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -350,7 +409,7 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
     nm = n_bits * m_parties
     rows: dict = {}
 
-    def check(name, path, args, fn, plain, bnd, shape, word_dim=1):
+    def check(name, path, args, fn, plain, bnd, shape, word_dim=1, launch=None):
         got = fn(*args)
         torch.cuda.synchronize()
         want, plain_ms = timed_ms(plain)
@@ -359,6 +418,8 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
                "equal": bool(torch.equal(got, want)), "max_abs_err": max_abs_err(got, want, word_dim),
                "kernel_ms": cuda_ms(lambda: fn(*args), 20), "device_ms": device_ms(lambda: fn(*args), 20),
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
+        if launch is not None:
+            res["launch"] = launch
         emit(res)
         rows.setdefault(name, {})[path] = res
 
@@ -376,24 +437,35 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         T, L = sh["T"], sh["W"] * sh["nt"]
         scan_x = random_points(pool, T * L, gen).reshape(3, NW, T, L).contiguous()
         check("point_scan_steps_inner", path, (scan_x,), kernels.point_scan_steps_inner,
-              lambda: kernels.point_scan_plain(scan_x),
-              bound(2 * POINT_BYTES * T * L, (T - 1) * L * POINT_ADD_OPS), {"T": T, "L": L})
+              lambda: kernels.point_scan_plain(scan_x), scan_bound(T, L), {"T": T, "L": L},
+              launch=scan_launch(L))
         del scan_x
         nw, k = sh["horner"]
         c = sh["c"]
         horner_w = random_points(pool, nw * k, gen).reshape(3, NW, nw, k).permute(2, 0, 1, 3).contiguous()
         check("point_horner_multi", path, (horner_w, c), kernels.point_horner_multi,
               lambda: kernels.point_horner_plain(horner_w, c),
-              bound(POINT_BYTES * (nw * k + k), nw * (c + 1) * k * POINT_ADD_OPS),
-              {"nw": nw, "c": c, "k": k})
+              bound(POINT_BYTES * (nw * k + k), (nw - 1) * (c + 1) * k * POINT_ADD_OPS),
+              {"nw": nw, "c": c, "k": k}, launch=horner_launch(k))
         torch.cuda.empty_cache()
 
     # no path launches point_scan_steps: the prove scan's shape, steps outside the words
     T, L = shapes["prove"]["T"], shapes["prove"]["W"] * shapes["prove"]["nt"]
-    steps_x = random_points(pool, T * L, gen).reshape(3, T, NW, L).contiguous()
+    steps_x = random_points(pool, T * L, gen).reshape(3, NW, T, L).transpose(1, 2).contiguous()
     check("point_scan_steps", "none", (steps_x,), kernels.point_scan_steps,
-          lambda: kernels.point_scan_steps_plain(steps_x),
-          bound(2 * POINT_BYTES * T * L, (T - 1) * L * POINT_ADD_OPS), {"T": T, "L": L}, word_dim=2)
+          lambda: kernels.point_scan_steps_plain(steps_x), scan_bound(T, L), {"T": T, "L": L},
+          word_dim=2, launch=scan_launch(L))
+    # both scans where the last block of lanes is part-filled
+    T, L = PART_BLOCK_SCAN
+    part_x = random_points(pool, T * L, gen).reshape(3, NW, T, L).contiguous()
+    check("point_scan_steps_inner", "part_block", (part_x,), kernels.point_scan_steps_inner,
+          lambda: kernels.point_scan_plain(part_x), scan_bound(T, L), {"T": T, "L": L},
+          launch=scan_launch(L))
+    part_x = part_x.transpose(1, 2).contiguous()
+    check("point_scan_steps", "part_block", (part_x,), kernels.point_scan_steps,
+          lambda: kernels.point_scan_steps_plain(part_x), scan_bound(T, L), {"T": T, "L": L},
+          word_dim=2, launch=scan_launch(L))
+    del part_x
     reduce_x = random_points(pool, 2 * nm, gen)
     check("point_reduce", "prove", (reduce_x,), kernels.point_reduce,
           lambda: kernels.point_reduce_plain(reduce_x),
@@ -446,7 +518,8 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         results[name] = {**first, "equal": all(r["equal"] for r in by_path.values()),
                          "max_abs_err": max(r["max_abs_err"] for r in by_path.values()),
                          "at_paths": {p: {k: r[k] for k in ("shape", "max_abs_err", "kernel_ms", "device_ms",
-                                                            "plain_ms", "bound_ms", "bound_by")}
+                                                            "plain_ms", "bound_ms", "bound_by", "launch")
+                                          if k in r}
                                       for p, r in by_path.items()}}
     bad = [n for n, r in results.items() if not r["equal"]]
     if bad:
@@ -1009,8 +1082,15 @@ def profile_run(fn, warm_us: float, gpu: str, what: str) -> dict:
             "gpu": gpu}
 
 
-def kernel_summary(checks: dict, paths: dict) -> list:
-    """The ``kernels`` line: one row per kernel, its launches per path."""
+# kernel -> its entry function in the ptxas report, for the redesigned kernels
+PTXAS_ENTRY = {"point_scan_steps_inner": "point_scan_kernel", "point_scan_steps": "point_scan_kernel",
+               "point_horner_multi": "point_horner_kernel"}
+
+
+def kernel_summary(checks: dict, paths: dict, ptxas: dict) -> list:
+    """The ``kernels`` line: one row per kernel, its launches per path; for
+    the kernels of :data:`PTXAS_ENTRY` their registers and spills, launch
+    configurations and resident warps a scheduler at each path's shape."""
     from mpc_bulletproof_tpu_torch.ops import kernels
 
     summary = []
@@ -1026,9 +1106,14 @@ def kernel_summary(checks: dict, paths: dict) -> list:
             "equal": r["equal"], "launches_per_path": per_path,
             "on_paths": sorted(p for p, ks in PATH_KERNELS.items() if name in ks),
         }
-        for extra in ("ops", "at_paths", "op", "fill_share"):
+        for extra in ("ops", "at_paths", "op", "fill_share", "launch"):
             if extra in r:
                 row[extra] = r[extra]
+        if name in PTXAS_ENTRY:
+            entry = next(v for k, v in ptxas[name].items() if PTXAS_ENTRY[name] in k)
+            row["ptxas"] = entry
+            row["warps_per_scheduler"] = {p: warps_per_scheduler(entry["registers"], a["launch"])
+                                          for p, a in r["at_paths"].items()}
         summary.append(row)
     return summary
 
@@ -1053,6 +1138,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libs": {name: os.path.relpath(path) for name, (path, _) in report.items()},
           "ptxas": ptxas})
+    entries = {name: ptxas_entries(log) for name, (_, log) in report.items()}
 
     dev = torch.device("cuda")
     checks = check_kernels(gpu, dev)
@@ -1065,7 +1151,7 @@ def main() -> int:
 
     paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"],
              **rc["launches"], "probes": pr["launches"]}
-    summary = kernel_summary(checks, paths)
+    summary = kernel_summary(checks, paths, entries)
     emit({"kernels": summary})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

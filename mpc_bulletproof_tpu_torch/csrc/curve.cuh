@@ -15,13 +15,9 @@ struct Pt {
 };
 
 // 3b in Montgomery form
-__device__ __forceinline__ Fe b3_mont() {
-  Fe r;
-  r.v[0] = 0xa0d9983720ce655eull;
-  r.v[1] = 0x3571d66a7002b012ull;
-  r.v[2] = 0x029e5a007ec5ebd6ull;
-  r.v[3] = 0x03ab942f465c6d7full;
-  return r;
+BP_DEV Fe b3_mont() {
+  return fe_from_words(0xa0d9983720ce655eull, 0x3571d66a7002b012ull, 0x029e5a007ec5ebd6ull,
+                       0x03ab942f465c6d7full);
 }
 
 __device__ __forceinline__ Pt pt_identity() {
@@ -46,8 +42,10 @@ __device__ __forceinline__ void pt_store(u64 *base, long long stride, long long 
   fe_store(base + 8 * stride, stride, k, p.z);
 }
 
+// UNROLL: the product's unrolled rounds (fe_mont_mul).
+template <int UNROLL = 8>
 __device__ __forceinline__ Pt pt_add(const Pt &p, const Pt &q) {
-#define MUL(a, b) fe_mont_mul<FpConst>(a, b)
+#define MUL(a, b) fe_mont_mul<FpConst, UNROLL>(a, b)
 #define ADD(a, b) fe_add<FpConst>(a, b)
 #define SUB(a, b) fe_sub<FpConst>(a, b)
   const Fe b3 = b3_mont();

@@ -29,7 +29,7 @@ __global__ void vec2_kernel(const u64 *__restrict__ a, const u64 *__restrict__ b
   Fe y = fe_load(b, nb, nb == 1 ? 0 : k);
   Fe r;
   if (OP == OP_MUL)
-    r = fe_mont_mul<F>(fe_mont_mul<F>(x, y), fe_r2<F>());
+    r = fe_mont_mul<F, 1>(fe_mont_mul<F, 1>(x, y), fe_r2<F>());
   else if (OP == OP_ADD)
     r = fe_add<F>(x, y);
   else

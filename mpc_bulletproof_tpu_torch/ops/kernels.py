@@ -187,7 +187,7 @@ def point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# point_scan_steps_inner
+# point_scan_steps_inner, point_scan_steps
 # ---------------------------------------------------------------------------
 
 def point_scan_plain(x: torch.Tensor) -> torch.Tensor:
@@ -236,22 +236,21 @@ def point_scan_steps(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def point_horner_plain(window_sums: torch.Tensor, c: int) -> torch.Tensor:
-    """``sum_w 2^(c w) S_w``: from the most significant window, c doublings
-    then one add per window, starting from the identity."""
-    k = window_sums.shape[-1]
-    acc = identity((k,), window_sums.device).contiguous()
-    for w in range(window_sums.shape[0] - 1, -1, -1):
+    """``sum_w 2^(c w) S_w``: from the most significant window's sum, per
+    lower window c doublings then one add."""
+    acc = window_sums[-1]
+    for w in range(window_sums.shape[0] - 2, -1, -1):
         for _ in range(c):
             acc = _point_add(acc, acc)
         acc = _point_add(acc, window_sums[w])
-    return acc
+    return acc.contiguous()
 
 
 def point_horner_multi(window_sums: torch.Tensor, c: int) -> torch.Tensor:
     """Horner combine of ``(nw, 3, NW, k)`` window sums (window 0 least
     significant) -> ``(3, NW, k)``."""
     dev = _check(window_sums, "point_horner_multi window_sums")
-    if window_sums.dim() != 4 or tuple(window_sums.shape[1:3]) != (3, NW):
+    if window_sums.dim() != 4 or tuple(window_sums.shape[1:3]) != (3, NW) or window_sums.shape[0] < 1:
         raise ValueError("point_horner_multi: expected (nw, 3, NW, k)")
     if not 1 <= c <= 30:
         raise ValueError("point_horner_multi: window size out of range")

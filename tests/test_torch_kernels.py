@@ -6,8 +6,10 @@ against the JAX package's Pallas kernels in interpret mode
 vec_add, vec_sub), against its plain references
 (curve_jax._point_reduce_sum) and against exact host arithmetic.  Group
 elements are compared in affine form, field elements as integers.  The
-kernels themselves run only on the card: the tests marked ``cuda`` hold
-each one against its plain version there and skip elsewhere.
+scans and Horner's start from the top window are also held to golden
+host arithmetic.  The kernels themselves run only on the card: the tests
+marked ``cuda`` hold each one against its plain version there and skip
+elsewhere.
 
 The op-rate probes (ops/probes.py) are held against the TPU benches they
 replace: ``benches/tpu_mul_bench.py``'s ``make_kernel`` runs in interpret
@@ -37,6 +39,7 @@ from mpc_bulletproof_tpu.ops import kernels as jkernels
 from mpc_bulletproof_tpu.ops import limb as jlimb
 from mpc_bulletproof_tpu_torch import convert
 from mpc_bulletproof_tpu_torch.ops import curve_t, kernels, probes
+from mpc_bulletproof_tpu_torch.ops.curve import StarkPoint
 from mpc_bulletproof_tpu_torch.ops.limb import (FP, FR, NW, ints_to_words, mod_add, mod_mul, mod_sub,
                                                 words_to_ints)
 
@@ -147,6 +150,64 @@ def test_horner_matches_jax_pallas_horner():
             acc = acc + pts[w * k + j].scalar_mul(1 << (c * w))
         want.append(acc)
     assert _affine(tout) == _affine(want)
+
+
+# ---------------------------------------------------------------------------
+# the scans and Horner against golden host arithmetic
+# ---------------------------------------------------------------------------
+
+def _host_points(k: int, seed: int):
+    """Port-side golden points, every fifth the identity: sums of two of
+    eight random multiples of G (one host add a point)."""
+    rng = np.random.default_rng(seed)
+    G = StarkPoint.generator()
+    base = [G.scalar_mul(int(v)) for v in rng.integers(1, 2**62, size=8)]
+    pts = [base[i] + base[j] for i, j in rng.integers(0, 8, size=(k, 2))]
+    for i in range(0, k, 5):
+        pts[i] = StarkPoint.identity()
+    return pts
+
+
+@pytest.mark.parametrize("layout", ["inner", "steps"])
+@pytest.mark.parametrize("L", [1, 6, 33])
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 5, 8, 9, 13, 16, 17])
+def test_scan_matches_host_running_sums(T, L, layout):
+    """Both scans' every prefix equals the lane's running sum in golden
+    host arithmetic, at the paths' step counts (4, 8, 9, 13, 16, 17) and
+    lane counts that part-fill the kernel's blocks of 32."""
+    pts = _host_points(T * L, 40 + T * L)
+    x = torch.as_tensor(curve_t.points_from_host(pts)).reshape(3, NW, T, L)
+    if layout == "inner":
+        got = kernels.point_scan_steps_inner(x.contiguous())
+    else:
+        got = kernels.point_scan_steps(x.transpose(1, 2).contiguous()).transpose(1, 2)
+    assert got.shape == x.shape
+    want = []
+    for lane in range(L):
+        acc = StarkPoint.identity()
+        for t in range(T):
+            acc = acc + pts[t * L + lane]
+            want.append(acc)
+    got_lanes = [curve_t.points_to_host(got[:, :, :, lane].contiguous()) for lane in range(L)]
+    assert _affine([p for lane in got_lanes for p in lane]) == _affine(want)
+
+
+@pytest.mark.parametrize("nw,c,k", [(1, 1, 1), (2, 3, 2), (8, 9, 2)])
+def test_horner_plain_matches_host_horner(nw, c, k):
+    """Starting from the top window's sum gives the points of the
+    sequential Horner from the identity, in golden host arithmetic."""
+    pts = _host_points(nw * k, 30 + nw)
+    w = torch.as_tensor(curve_t.points_from_host(pts)).reshape(3, NW, nw, k).permute(2, 0, 1, 3).contiguous()
+    got = curve_t.points_to_host(kernels.point_horner_multi(w, c))
+    want = []
+    for j in range(k):
+        acc = StarkPoint.identity()
+        for i in range(nw - 1, -1, -1):
+            for _ in range(c):
+                acc = acc.double()
+            acc = acc + pts[i * k + j]
+        want.append(acc)
+    assert _affine(got) == _affine(want)
 
 
 @pytest.mark.parametrize("n", [1, 2, 300])
@@ -378,10 +439,10 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
     if name == "point_add":
         got, want = kernels.point_add(a, b), curve_t._point_add(a, b)
     elif name == "point_scan_steps_inner":
-        x = a.reshape(3, NW, 4, 10).contiguous()
+        x = a.reshape(3, NW, 5, 8).contiguous()
         got, want = kernels.point_scan_steps_inner(x), kernels.point_scan_plain(x)
     elif name == "point_scan_steps":
-        x = a.reshape(3, 4, NW, 10).contiguous()
+        x = a.reshape(3, NW, 4, 10).transpose(1, 2).contiguous()   # points, steps outside the words
         got, want = kernels.point_scan_steps(x), kernels.point_scan_steps_plain(x)
     elif name == "vec2":
         x, y = a[0].contiguous(), b[1].contiguous()                 # canonical mod p
