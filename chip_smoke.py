@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py    # from the repository root, on a machine with one card
+    python3 chip_smoke.py --ab DIR    # also A/B against an older tree's csrc in DIR
 
 Phases, one JSON object per line on standard output:
 
@@ -21,12 +22,25 @@ Phases, one JSON object per line on standard output:
    Times by CUDA events around 20 back-to-back calls (``kernel_ms``, host
    launch gaps included), by torch.profiler's kernel rows (``device_ms``,
    the kernel alone), and of the one plain call checked (``plain_ms``).
+   ``point_add`` rows name the design the wrapper picked (``narrow``: 8
+   lanes an add, up to ``POINT_ADD_NARROW_MAX`` lanes; ``wide``: a thread
+   an add); ``mod_pow_static`` rows the branch of each case (``gcd`` for
+   e = m - 2, ``ladder`` else; the inverse over edge lanes: 0, 1, m - 1,
+   m - 2, powers of two, values just below 2^251).  Rows bound by one
+   lane's chain (Horner, narrow ``point_add``, ``mod_pow_static``) carry
+   ``serial``: the dependent products or GCD steps a lane and the
+   measured ns a step.  ``point_add_sweep``: both designs at each width of
+   ``ADD_SWEEP`` (16 to 262,144 lanes), held to the plain add and timed
+   in turns (wide, narrow, narrow, wide); ``mod_pow_ab``: the inverse by
+   the ladder and by the GCD at each inverse path shape, held to the
+   plain version and timed in turns.
 4. ``main_path``: ``RangeProof.prove_multiple`` at (n, m) = (64, 64) on the
    pinned inputs; the digest of proof, commitments and transcript must equal
    the JAX package's (``mpc_bulletproof_tpu_torch/pinned.py``).  Launch
    counts are read around one proof, then the median of warm proofs.
    ``profile``: device time by kernel over one more warm proof
-   (torch.profiler) and the device's idle share.
+   (torch.profiler), each port kernel's sum (``port_kernels``) and the
+   device's idle share.
 5. ``verify``: ``verify_multiple`` of that proof; two tampered copies (t_x + 1,
    L_1 swapped with R_1) must raise ``VerificationError``; ``verify_batch``
    of it and a second proof must pass.  Launch counts around one
@@ -50,7 +64,14 @@ Phases, one JSON object per line on standard output:
    the TPU shapes: each held bit for bit to its plain version (NaN equal to
    NaN), then timed at the full repetition counts (ms, Gop/s, the bound,
    the share of the card's resident threads the shape fills).
-9. the ``kernels`` summary with launches per path (for the scans and
+9. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: a baseline tree's
+   ``point_add``, ``mod_pow_static`` and ``point_horner_multi``, built
+   from DIR (that tree's ``mpc_bulletproof_tpu_torch/csrc``), against
+   this tree's: equal outputs, device times in turns (base, this, this,
+   base) at the sweep widths, Horner's path shapes and the inverse's path
+   shapes, and the device time by kernel of one warm prove and
+   r1cs_prove proof under each.
+10. the ``kernels`` summary with launches per path (for the scans and
    Horner also their ptxas registers and spills, launch configurations
    and resident warps a scheduler), the card's ``nvidia-smi`` name and
    power limit, and last ``{"ok": true, "device": {...}}``.
@@ -86,6 +107,16 @@ SMS = 132
 RESIDENT_THREADS = SMS * 2048  # H100 SXM: 132 SMs of 2,048 resident threads
 PART_BLOCK_SCAN = (13, 1000)  # a scan shape (T, L) whose last block of 32 lanes is part-filled
 BASE_LANES = 1 << 16  # random points made with their own scaling; wider inputs draw from them
+# point_add's two designs, each held to the plain add and timed in turns at
+# these widths (the crossover sweep); the dispatched one serves every path row
+ADD_SWEEP = (16, 256, 2048, 4096, 8192, 13312, 16384, 65536, 262144)
+# Dependent steps of one lane's chain, for the rows bound by a chain: the
+# Montgomery products of one add on the critical path (3 levels split, 14
+# in one thread) and the binary GCD's steps (17 rounds of 31).
+ADD_PRODUCTS = {"wide": 14, "narrow": 3}
+# the profiler's kernel name of each point_add design
+ADD_KERNEL = {"wide": "point_add_kernel(", "narrow": "point_add_narrow_kernel("}
+GCD_STEPS = 17 * 31
 
 # Bounds: NVIDIA's published H100 SXM rates (data sheet, dense, 700 W):
 # 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores.  There is
@@ -104,6 +135,16 @@ POINT_BYTES = 3 * 4 * 8
 # A modular sum or difference: a 4-word add (sub) with carries and a 4-word
 # conditional subtract (add), 64-bit operations as two 32-bit ones.
 VEC_ADD_OPS = 2 * 2 * 4 * 2
+# The binary GCD inverse (csrc/mod_pow.cu), 32-bit operations a lane: a step
+# ~32 (64-bit subtract, compare, selects and shifts of a, b and four
+# factors); a round 31 steps, ~40 to form the approximations and the four
+# 8 x 1-limb products of each update pair (a, b and u, v) plus the
+# Montgomery quotient's product (8 limbs for r, 3 for p), 2 operations each.
+GCD_STEP_OPS = 32
+
+
+def gcd_ops(fr: bool) -> int:
+    return 17 * (31 * GCD_STEP_OPS + 40 + 2 * (4 * 8 * 2 + 2 * (8 if fr else 3)))
 
 REPLACES = {
     "point_add": "mpc_bulletproof_tpu/ops/kernels.py:164",
@@ -316,6 +357,82 @@ def random_points(pool, count: int, gen):
     return curve_t._point_select(torch.arange(count, device=dev) % 7 == 3, ident, pts).contiguous()
 
 
+def add_operands(pool, count: int, gen):
+    """Two point batches for ``point_add`` with every 5th lane a doubling
+    and every 5th (offset 2) P + (-P), besides :func:`random_points`' lanes."""
+    from mpc_bulletproof_tpu_torch.ops import curve_t
+
+    a = random_points(pool, count, gen)
+    b = random_points(pool, count, gen)
+    b[:, :, 1::5] = a[:, :, 1::5]                            # doubling
+    b[:, :, 2::5] = curve_t._point_neg(a[:, :, 2::5])        # P + (-P)
+    return a.contiguous(), b.contiguous()
+
+
+def serial_depth(unit: str, steps: int, dev_ms: float | None) -> dict:
+    """A chain-bound row's serial depth: dependent steps of one lane and the
+    measured ns a step (the kernel's device time over the chain)."""
+    return {"unit": unit, "per_lane": steps,
+            "ns_per_step": dev_ms * 1e6 / steps if dev_ms is not None else None}
+
+
+def point_add_sweep(gpu: str, pool, gen) -> list:
+    """Both point_add designs at each width of ``ADD_SWEEP``: held to the
+    plain add, then timed by the profiler in turns (wide, narrow in one
+    session, narrow, wide in the next)."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import curve_t, kernels
+
+    out = []
+    for lanes in ADD_SWEEP:
+        a, b = add_operands(pool, lanes, gen)
+        want = curve_t._point_add(a, b)
+        run = {d: (lambda d=d: kernels._point_add_launch(a, b, d)) for d in ADD_KERNEL}
+        errs = {d: max_abs_err(fn(), want, 1) for d, fn in run.items()}
+        torch.cuda.synchronize()
+        order = list(run)
+        turns = [device_ms_by_name([(ADD_KERNEL[d], run[d]) for d in o], 20)
+                 for o in (order, order[::-1])]
+        dms = {d: [t[ADD_KERNEL[d]] for t in turns] for d in run}
+        row = {"phase": "point_add_sweep", "lanes": lanes, "dispatched": kernels.point_add_design(lanes),
+               "max_abs_err": errs, "device_ms": dms,
+               "serial": {d: serial_depth("product", ADD_PRODUCTS[d],
+                                          min((t for t in dms[d] if t is not None), default=None))
+                          for d in run},
+               "bound_ms": bound(3 * POINT_BYTES * lanes, lanes * POINT_ADD_OPS)[0], "gpu": gpu}
+        emit(row)
+        if any(errs.values()):
+            raise RuntimeError(f"point_add disagrees with the plain add at {lanes} lanes: {errs}")
+        out.append({k: row[k] for k in ("lanes", "dispatched", "max_abs_err", "device_ms")})
+        del a, b, want
+    return out
+
+
+def mod_pow_ab(gpu: str, path: str, x, mp, e) -> dict:
+    """The inverse by the ladder (the kernel's path for every other
+    exponent) and by the GCD on the same lanes: both held to the plain
+    version, then timed by the profiler in turns (ladder, GCD in one
+    session, GCD, ladder in the next)."""
+    from mpc_bulletproof_tpu_torch.ops import kernels
+    from mpc_bulletproof_tpu_torch.ops.limb import FP
+
+    want = kernels.mod_pow_plain(x, e, mp)
+    run = {"ladder": lambda: kernels._mod_pow_launch(x, e, mp, False),
+           "gcd": lambda: kernels._mod_pow_launch(x, e, mp, True)}
+    errs = {b: max_abs_err(fn(), want, 0) for b, fn in run.items()}
+    names = {"ladder": "mod_pow_kernel<", "gcd": "mod_inv_kernel<"}
+    turns = [device_ms_by_name([(names[b], run[b]) for b in order], 20)
+             for order in (("ladder", "gcd"), ("gcd", "ladder"))]
+    dms = {b: [t[names[b]] for t in turns] for b in run}
+    row = {"phase": "mod_pow_ab", "path": path, "n": x.shape[-1], "field": "FP" if mp is FP else "FR",
+           "max_abs_err": errs, "device_ms": dms, "gpu": gpu}
+    emit(row)
+    if any(errs.values()):
+        raise RuntimeError(f"mod_pow_static's inverse disagrees with the plain version: {row}")
+    return {k: row[k] for k in ("path", "n", "field", "max_abs_err", "device_ms")}
+
+
 def verify_width(n_bits: int, m_parties: int) -> int:
     """Points of the (n, m) mega-check: A, S, T_1, T_2, V.., B, B~, L.., R.., G, H."""
     nm = n_bits * m_parties
@@ -409,7 +526,10 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
     nm = n_bits * m_parties
     rows: dict = {}
 
-    def check(name, path, args, fn, plain, bnd, shape, word_dim=1, launch=None):
+    def check(name, path, args, fn, plain, bnd, shape, word_dim=1, launch=None, extra=None,
+              serial=None):
+        """``serial``: (unit, dependent steps of one lane's chain) for the
+        rows bound by a chain; the row gets the ns a step it measured."""
         got = fn(*args)
         torch.cuda.synchronize()
         want, plain_ms = timed_ms(plain)
@@ -417,22 +537,24 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         res = {"phase": "kernel", "name": name, "path": path, "shape": shape, "tolerance": 0,
                "equal": bool(torch.equal(got, want)), "max_abs_err": max_abs_err(got, want, word_dim),
                "kernel_ms": cuda_ms(lambda: fn(*args), 20), "device_ms": device_ms(lambda: fn(*args), 20),
-               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, **(extra or {}),
+               "gpu": gpu}
         if launch is not None:
             res["launch"] = launch
+        if serial is not None:
+            res["serial"] = serial_depth(*serial, res["device_ms"])
         emit(res)
         rows.setdefault(name, {})[path] = res
 
     shapes = path_shapes(n_bits, m_parties, log2n, shuffle_k)
     for path, sh in shapes.items():
         aw, an = sh["add"]
-        a = random_points(pool, aw * an, gen)
-        b = random_points(pool, aw * an, gen)
-        b[:, :, 1::5] = a[:, :, 1::5]                            # doubling
-        b[:, :, 2::5] = curve_t._point_neg(a[:, :, 2::5])        # P + (-P)
+        a, b = add_operands(pool, aw * an, gen)
         a, b = a.reshape(3, NW, aw, an).contiguous(), b.reshape(3, NW, aw, an).contiguous()
+        design = kernels.point_add_design(aw * an)
         check("point_add", path, (a, b), kernels.point_add, lambda: curve_t._point_add(a, b),
-              bound(3 * POINT_BYTES * aw * an, aw * an * POINT_ADD_OPS), {"W": aw, "lanes": an})
+              bound(3 * POINT_BYTES * aw * an, aw * an * POINT_ADD_OPS), {"W": aw, "lanes": an},
+              extra={"design": design}, serial=("product", ADD_PRODUCTS[design]))
         del a, b
         T, L = sh["T"], sh["W"] * sh["nt"]
         scan_x = random_points(pool, T * L, gen).reshape(3, NW, T, L).contiguous()
@@ -446,7 +568,8 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         check("point_horner_multi", path, (horner_w, c), kernels.point_horner_multi,
               lambda: kernels.point_horner_plain(horner_w, c),
               bound(POINT_BYTES * (nw * k + k), (nw - 1) * (c + 1) * k * POINT_ADD_OPS),
-              {"nw": nw, "c": c, "k": k}, launch=horner_launch(k))
+              {"nw": nw, "c": c, "k": k}, launch=horner_launch(k),
+              serial=("product", (nw - 1) * (c + 1) * ADD_PRODUCTS["narrow"]))
         torch.cuda.empty_cache()
 
     # no path launches point_scan_steps: the prove scan's shape, steps outside the words
@@ -479,46 +602,76 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         xs[:, :k] = edge[:, :k]
         return xs.contiguous()
 
+    def pow_scalars(count, mp):
+        """:func:`scalars` with the inverse's edge lanes first, as many as
+        fit: 0, 1, m - 1, m - 2, powers of two, values just below 2^251 and
+        long runs of equal bits."""
+        m = mp.modulus
+        edge = ([0, 1, m - 1, m - 2] + [1 << k for k in (1, 31, 32, 63, 64, 127, 128, 192, 250)]
+                + [(1 << 251) - i for i in (1, 2, 3)] + [int("10" * 125, 2), int("1" * 100 + "0" * 100, 2)])
+        xs = scalars(count, mp)
+        k = min(len(edge), count)
+        xs[:, :k] = torch.as_tensor(limb.ints_to_words(edge[:k]), device=dev)
+        return xs.contiguous()
+
     pow_paths = {  # per path (lanes, field, exponent); the first is timed
         # per IPP round the L/R affine conversion (FP, 2) and u^-1 (FR, 1); V affine (FP, m);
         # the split table's affine conversion
         "prove": [(2, FP, P - 2), (1, FR, R - 2), (m_parties, FP, P - 2),
                   (msm_mod.SPLIT_CHUNKS * (2 * nm + 1), FP, P - 2)],
         "r1cs_prove": [(1, FR, R - 2), (2, FP, P - 2)],
+        # no path: the ladder at a general exponent, the FR inverse over all edge lanes
+        "none": [(64, FP, 65537), (64, FR, 65537), (64, FR, R - 2)],
     }
 
-    def pow_ops(k, mp, e):
+    def ladder_products(e):
         ndig = (e.bit_length() + 3) // 4
-        nnz = sum(1 for d in range(ndig) if (e >> (4 * d)) & 15)
-        prods = 2 + 14 + 4 * (ndig - 1) + nnz
-        return k * prods * (FP_MUL_OPS if mp is FP else FR_MUL_OPS)
+        return 2 + 14 + 4 * (ndig - 1) + sum(1 for d in range(ndig) if (e >> (4 * d)) & 15)
 
+    def pow_cost(k, mp, e):
+        """(bound, serial depth) of k lanes of x^e."""
+        if kernels.is_inverse(e, mp):
+            return bound(2 * 32 * k, k * gcd_ops(mp is FR)), ("gcd_step", GCD_STEPS)
+        ops = k * ladder_products(e) * (FP_MUL_OPS if mp is FP else FR_MUL_OPS)
+        return bound(2 * 32 * k, ops), ("product", ladder_products(e))
+
+    inverse_cases = []
     for path, cases in pow_paths.items():
-        pow_inputs = [(scalars(k, mp), mp, e) for k, mp, e in cases]
+        pow_inputs = [(pow_scalars(k, mp), mp, e) for k, mp, e in cases]
         errs, equal = [], True
         for x, mp, e in pow_inputs:
             got = kernels.mod_pow_static(x, e, mp)
             want = kernels.mod_pow_plain(x, e, mp)
             equal &= bool(torch.equal(got, want))
             errs.append(max_abs_err(got, want, 0))
+            if kernels.is_inverse(e, mp) and path != "none":
+                inverse_cases.append((path, x, mp, e))
         x0, mp0, e0 = pow_inputs[0]
-        bound_ms, bound_by = bound(2 * 32 * x0.shape[-1], pow_ops(x0.shape[-1], mp0, e0))
+        (bound_ms, bound_by), serial = pow_cost(x0.shape[-1], mp0, e0)
+        dms = device_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20)
         res = {"phase": "kernel", "name": "mod_pow_static", "path": path,
-               "shape": [{"n": k, "field": "FP" if mp is FP else "FR"} for k, mp, _ in cases],
+               "shape": [{"n": k, "field": "FP" if mp is FP else "FR",
+                          "branch": "gcd" if kernels.is_inverse(e, mp) else "ladder"} for k, mp, e in cases],
                "tolerance": 0, "equal": equal, "max_abs_err": max(errs),
                "kernel_ms": cuda_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20),
-               "device_ms": device_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20),
+               "device_ms": dms,
                "plain_ms": timed_ms(lambda: kernels.mod_pow_plain(x0, e0, mp0))[1],
-               "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
+               "bound_ms": bound_ms, "bound_by": bound_by, "serial": serial_depth(*serial, dms),
+               "gpu": gpu}
         emit(res)
         rows.setdefault("mod_pow_static", {})[path] = res
+    pow_ab = [mod_pow_ab(gpu, *case) for case in inverse_cases]
+    sweep = point_add_sweep(gpu, pool, gen)
     results = {"vec2": check_vec_ops(gpu, scalars)}
+    rows["point_add"]["prove"]["sweep"] = sweep
+    rows["mod_pow_static"]["prove"]["gcd_vs_ladder"] = pow_ab
     for name, by_path in rows.items():
         first = by_path.get("prove", next(iter(by_path.values())))
         results[name] = {**first, "equal": all(r["equal"] for r in by_path.values()),
                          "max_abs_err": max(r["max_abs_err"] for r in by_path.values()),
                          "at_paths": {p: {k: r[k] for k in ("shape", "max_abs_err", "kernel_ms", "device_ms",
-                                                            "plain_ms", "bound_ms", "bound_by", "launch")
+                                                            "plain_ms", "bound_ms", "bound_by", "launch",
+                                                            "design", "serial")
                                           if k in r}
                                       for p, r in by_path.items()}}
     bad = [n for n, r in results.items() if not r["equal"]]
@@ -619,7 +772,8 @@ def main_path(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES) -
            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches, "gpu": gpu}
     emit(res)
     emit(profile_run(prove, res["us_per_proof_median"], gpu, "prove"))
-    res.update(proof=proof, V=V, values=values, bp_gens=bp_gens, pc_gens=pc_gens)
+    res.update(proof=proof, V=V, values=values, bp_gens=bp_gens, pc_gens=pc_gens,
+               proof_run=(lambda: None, lambda _: prove()))
     return res
 
 
@@ -907,6 +1061,7 @@ def r1cs_phase(gpu: str, dev, k: int = SHUFFLE_K) -> dict:
     emit(res)
     p = prover()
     emit(profile_run(lambda: prove(p), res["us_per_proof_median"], gpu, "r1cs_prove"))
+    res["proof_run"] = (prover, prove)
     return res
 
 
@@ -1074,12 +1229,161 @@ def profile_run(fn, warm_us: float, gpu: str, what: str) -> dict:
                    if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
                   reverse=True)
     busy_us = sum(r[0] for r in rows)
+    port: dict = {}
+    for us, key, n in rows:
+        fname = re.split(r"[<(]", key.removeprefix("void "), maxsplit=1)[0]
+        if fname in kernel_functions():
+            agg = port.setdefault(fname, {"device_us": 0.0, "count": 0})
+            agg["device_us"] += us
+            agg["count"] += n
     return {"phase": "profile", "of": what, "wall_us": wall_us, "device_busy_us": busy_us if rows else None,
             "device_idle_share": (1 - busy_us / wall_us) if rows else None,
             "device_idle_share_unprofiled": (1 - busy_us / warm_us) if rows else None,
             "device_launches": sum(r[2] for r in rows) if rows else None,
             "top": [{"name": k[:80], "device_us": us, "count": n} for us, k, n in rows[:25]],
-            "gpu": gpu}
+            "port_kernels": port, "gpu": gpu}
+
+
+def kernel_functions() -> set:
+    """The names of the ``__global__`` functions in the port's CUDA sources."""
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)")
+    return {m for f in kernels.CSRC.glob("*.cu") for m in pat.findall(f.read_text())}
+
+
+# --- A/B against a baseline tree's kernels (``--ab DIR``)
+
+AB_SOURCES = {"point_add": "point_add.cu", "mod_pow_static": "mod_pow.cu",
+              "point_horner_multi": "point_horner.cu"}
+
+
+def build_ab(src_dir: str) -> dict:
+    """A baseline tree's libraries of point_add, mod_pow_static and
+    point_horner_multi, built from ``src_dir`` (that tree's ``csrc``, e.g.
+    unpacked by ``git archive``) with this tree's nvcc flags, each behind
+    an adapter to this tree's entry signature (the baseline's point_add
+    takes no design flag, its mod_pow no inverse flag: it runs the ladder
+    for every exponent)."""
+    import ctypes
+    from pathlib import Path
+
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, source in AB_SOURCES.items():
+        lib = kernels.BUILD_DIR / f"ab-{Path(source).stem}.so"
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib), str(Path(src_dir) / source)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), lib)
+    P, LL, I, U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint64
+    argtypes = {"point_add": [P, P, P, LL, P], "mod_pow_static": [P, P, LL, U, U, U, U, I, P],
+                "point_horner_multi": [P, P, I, I, LL, P]}
+    fns = {}
+    for name, (proc, lib) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the baseline's {AB_SOURCES[name]}:\n{out}")
+        fn = getattr(ctypes.CDLL(str(lib)), kernels.KERNELS[name][1])
+        fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
+        fns[name] = fn
+    add, pow_ = fns["point_add"], fns["mod_pow_static"]
+    return {"point_add": lambda a, b, o, n, narrow, st: add(a, b, o, n, st),
+            "mod_pow_static": lambda x, o, n, e0, e1, e2, e3, field, inverse, st:
+                pow_(x, o, n, e0, e1, e2, e3, field, st),
+            "point_horner_multi": fns["point_horner_multi"]}
+
+
+def under(fns: dict | None, f):
+    """``f()`` with the wrappers launching the libraries of ``fns`` (the baseline's)
+    in place of this tree's; ``None`` runs this tree's."""
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    if fns is None:
+        return f()
+    for name in fns:
+        kernels._fn(name)
+    saved = {name: kernels._FNS[name] for name in fns}
+    kernels._FNS.update(fns)
+    try:
+        return f()
+    finally:
+        kernels._FNS.update(saved)
+
+
+def ab_phase(gpu: str, dev, src_dir: str, proofs: dict) -> dict:
+    """A baseline's point_add, mod_pow_static and point_horner_multi against this
+    tree's, in one call: held equal, then timed by the profiler in turns
+    (base, this tree, this tree, base), point_add at every width of the
+    sweep, Horner at every path shape, the inverse at the path shapes; then
+    the device time by kernel of one warm proof of each path in ``proofs``
+    (``{path: (make, run)}``: ``run(make())`` proves once) in the same
+    turns."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.constants import P, R
+    from mpc_bulletproof_tpu_torch.ops import curve_t, kernels
+    from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
+    from mpc_bulletproof_tpu_torch.ops.curve import StarkPoint
+    from mpc_bulletproof_tpu_torch.ops.limb import FP, FR, NW
+
+    old = build_ab(src_dir)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    G = StarkPoint.generator()
+    host_pool = [G]
+    for _ in range(63):
+        host_pool.append(host_pool[-1] + host_pool[-1] + G)
+    pool = torch.as_tensor(curve_t.points_from_host(host_pool), device=dev)
+    order = (("base", old), ("this", None), ("this", None), ("base", old))
+
+    def turns(fn):
+        a, b = under(old, fn), fn()
+        torch.cuda.synchronize()
+        err = max_abs_err(a, b, 1 if a.dim() == 3 else 0)
+        if err:
+            raise RuntimeError(f"the baseline's kernel and this tree's disagree ({err})")
+        t = {"base": [], "this": []}
+        for who, fns in order:
+            t[who].append(device_ms(lambda: under(fns, fn), 20))
+        return t
+
+    rows = {"point_add": [], "point_horner_multi": [], "mod_pow_static": []}
+    for lanes in ADD_SWEEP:
+        a, b = add_operands(pool, lanes, gen)
+        rows["point_add"].append({"lanes": lanes, "design": kernels.point_add_design(lanes),
+                                  "device_ms": turns(lambda: kernels.point_add(a, b))})
+        emit({"phase": "ab", "name": "point_add", **rows["point_add"][-1], "gpu": gpu})
+    seen = set()
+    for path, sh in path_shapes(N_BITS, M_PARTIES, MSM_LOG2N, SHUFFLE_K).items():
+        nw, k = sh["horner"]
+        if (nw, sh["c"], k) in seen:
+            continue
+        seen.add((nw, sh["c"], k))
+        w = random_points(pool, nw * k, gen).reshape(3, NW, nw, k).permute(2, 0, 1, 3).contiguous()
+        rows["point_horner_multi"].append({"path": path, "nw": nw, "c": sh["c"], "k": k,
+                                           "device_ms": turns(lambda: kernels.point_horner_multi(w, sh["c"]))})
+        emit({"phase": "ab", "name": "point_horner_multi", **rows["point_horner_multi"][-1], "gpu": gpu})
+    nm = N_BITS * M_PARTIES
+    for n, mp, e in ((2, FP, P - 2), (1, FR, R - 2), (M_PARTIES, FP, P - 2),
+                     (msm_mod.SPLIT_CHUNKS * (2 * nm + 1), FP, P - 2)):
+        x = torch.randint(-(2**63), 2**63 - 1, (NW, n), generator=gen, device=dev)
+        x[3] &= (1 << 58) - 1
+        x = x.contiguous()
+        rows["mod_pow_static"].append({"n": n, "field": "FP" if mp is FP else "FR",
+                                       "device_ms": turns(lambda: kernels.mod_pow_static(x, e, mp))})
+        emit({"phase": "ab", "name": "mod_pow_static", **rows["mod_pow_static"][-1], "gpu": gpu})
+    profiles = {}
+    for path, (make, run) in proofs.items():
+        got = {"base": [], "this": []}
+        for who, fns in order:
+            state = make()
+            prof = under(fns, lambda: profile_run(lambda: run(state), 1.0, gpu, path))
+            got[who].append({"device_busy_us": prof["device_busy_us"], "port_kernels": prof["port_kernels"]})
+        profiles[path] = got
+        emit({"phase": "ab_profile", "of": path, **got, "gpu": gpu})
+    return {"kernels": rows, "profiles": profiles}
 
 
 # kernel -> its entry function in the ptxas report, for the redesigned kernels
@@ -1106,7 +1410,8 @@ def kernel_summary(checks: dict, paths: dict, ptxas: dict) -> list:
             "equal": r["equal"], "launches_per_path": per_path,
             "on_paths": sorted(p for p, ks in PATH_KERNELS.items() if name in ks),
         }
-        for extra in ("ops", "at_paths", "op", "fill_share", "launch"):
+        for extra in ("ops", "at_paths", "op", "fill_share", "launch", "design", "serial", "sweep",
+                      "gcd_vs_ladder"):
             if extra in r:
                 row[extra] = r[extra]
         if name in PTXAS_ENTRY:
@@ -1119,8 +1424,15 @@ def kernel_summary(checks: dict, paths: dict, ptxas: dict) -> list:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ab", metavar="DIR",
+                    help="also time a baseline tree's point_add, mod_pow_static and point_horner_multi, built "
+                         "from the csrc directory DIR, against this tree's (the ab lines)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1148,6 +1460,8 @@ def main() -> int:
     rc = r1cs_phase(gpu, dev)
     pr = probes_phase(gpu, dev)
     checks.update(pr["checks"])
+    if args.ab:
+        ab_phase(gpu, dev, args.ab, {"prove": mp["proof_run"], "r1cs_prove": rc["proof_run"]})
 
     paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"],
              **rc["launches"], "probes": pr["launches"]}

@@ -6,7 +6,8 @@ lazy (a value below ``16 p``, limbs in ``[-1, 2^13]``), and scalars as
 ``(NL=20, n)`` canonical 13-bit limbs.  The port keeps ``(3, NW, n)`` /
 ``(NW, n)`` canonical 64-bit words with ``R = 2^256``.  Numpy and the
 port's own constants only: the tests use this to hand both packages the
-same generator arrays.
+same generator arrays.  Like every entry point of the port, both functions
+put their result on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def _limb_values(arr: np.ndarray) -> list[int]:
     return [int(v) for v in weights @ a]
 
 
-def points_from_jax(np_arr, device="cpu") -> torch.Tensor:
+def points_from_jax(np_arr, device="cuda") -> torch.Tensor:
     """JAX ``(3, NLZ, n)`` lazy Montgomery points -> port ``(3, NW, n)``."""
     a = np.asarray(np_arr)
     if a.ndim != 3 or a.shape[0] != 3:
@@ -40,7 +41,7 @@ def points_from_jax(np_arr, device="cpu") -> torch.Tensor:
     return torch.as_tensor(np.stack(coords), device=device)
 
 
-def scalars_from_jax(np_arr, device="cpu") -> torch.Tensor:
+def scalars_from_jax(np_arr, device="cuda") -> torch.Tensor:
     """JAX ``(NL, n)`` canonical limbs -> port ``(NW, n)`` words."""
     a = np.asarray(np_arr)
     if a.ndim != 2:

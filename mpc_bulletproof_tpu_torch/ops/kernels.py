@@ -61,12 +61,12 @@ NVCC_FLAGS = [
 # kernel name -> (source, C entry point, ctypes argtypes)
 _P, _LL, _I, _U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint64
 KERNELS = {
-    "point_add": ("point_add.cu", "bp_point_add", [_P, _P, _P, _LL, _P]),
+    "point_add": ("point_add.cu", "bp_point_add", [_P, _P, _P, _LL, _I, _P]),
     "point_scan_steps_inner": ("point_scan.cu", "bp_point_scan", [_P, _P, _I, _LL, _P]),
     "point_scan_steps": ("point_scan.cu", "bp_point_scan_steps", [_P, _P, _I, _LL, _P]),
     "point_horner_multi": ("point_horner.cu", "bp_point_horner", [_P, _P, _I, _I, _LL, _P]),
     "point_reduce": ("point_reduce.cu", "bp_point_reduce", [_P, _P, _LL, _P]),
-    "mod_pow_static": ("mod_pow.cu", "bp_mod_pow", [_P, _P, _LL, _U, _U, _U, _U, _I, _P]),
+    "mod_pow_static": ("mod_pow.cu", "bp_mod_pow", [_P, _P, _LL, _U, _U, _U, _U, _I, _I, _P]),
     "vec2": ("vec2.cu", "bp_vec2", [_P, _P, _P, _LL, _LL, _I, _I, _P]),
     "probe_chain": ("probes.cu", "bp_probe_chain", [_P, _P, _P, _LL, _I, _I, _P]),
     "probe_xor_chain": ("probes.cu", "bp_probe_xor_chain", [_P, _P, _LL, _I, _I, _P]),
@@ -173,6 +173,26 @@ def _check(t: torch.Tensor, what: str, shape=None, lead=None) -> str:
 # point_add
 # ---------------------------------------------------------------------------
 
+# Widest batch the narrow design (8 lanes an add) takes; wider batches get
+# one thread an add.  Measured on one H100 80GB HBM3 at 700 W, both designs
+# in turns (chip_smoke.py's point_add_sweep, device us, wide / narrow):
+# 2,048 lanes 8.20 / 3.96, 4,096 8.26 / 5.51, 8,192 8.33 / 8.99, 16,384
+# 8.57 / 15.18 (csrc/point_add.cu has the whole sweep; PERF.md).
+POINT_ADD_NARROW_MAX = 4096
+
+
+def point_add_design(lanes: int) -> str:
+    """The design :func:`point_add` launches for a batch of this width."""
+    return "narrow" if lanes <= POINT_ADD_NARROW_MAX else "wide"
+
+
+def _point_add_launch(a: torch.Tensor, b: torch.Tensor, design: str) -> torch.Tensor:
+    out = torch.empty_like(a)
+    _launch("point_add", a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // (3 * NW),
+            {"wide": 0, "narrow": 1}[design])
+    return out
+
+
 def point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Complete point addition of two ``(3, NW, *batch)`` batches of the same
     shape.  No broadcasting: the caller expands an operand explicitly."""
@@ -181,9 +201,7 @@ def point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("point_add: operands on different devices")
     if dev == "cpu":
         return _point_add(a, b)
-    out = torch.empty_like(a)
-    _launch("point_add", a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // (3 * NW))
-    return out
+    return _point_add_launch(a, b, point_add_design(a.numel() // (3 * NW)))
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +361,12 @@ def _batch_inverse_plain(xp: torch.Tensor, mp: ModParams) -> torch.Tensor:
     return mul(mul(excl_pre, excl_suf), inv_total)
 
 
+def is_inverse(exponent: int, mp: ModParams) -> bool:
+    """Whether ``x^exponent mod m`` is the inverse (``e = m - 2``), which the
+    kernel computes by a binary GCD and the plain version as a batch."""
+    return exponent == mp.modulus - 2
+
+
 def mod_pow_plain(x: torch.Tensor, exponent: int, mp: ModParams) -> torch.Tensor:
     """``x^e mod m``, the kernel's function in plain tensor code.  The ladder
     runs lane by lane, except for the inverse exponent ``e = m - 2``: there
@@ -350,7 +374,7 @@ def mod_pow_plain(x: torch.Tensor, exponent: int, mp: ModParams) -> torch.Tensor
     are unique, so both give the kernel's words."""
     dev = x.device
     zero = (x == 0).all(dim=0)
-    inverse = exponent == mp.modulus - 2
+    inverse = is_inverse(exponent, mp)
     if inverse:
         x = torch.where(zero[None], 1, x)
     xp = mont_mul_p(to_pieces(x), mp.t("r2", dev), mp)
@@ -362,10 +386,19 @@ def mod_pow_plain(x: torch.Tensor, exponent: int, mp: ModParams) -> torch.Tensor
     return out.contiguous()
 
 
+def _mod_pow_launch(x: torch.Tensor, exponent: int, mp: ModParams, inverse: bool) -> torch.Tensor:
+    out = torch.empty_like(x)
+    ew = [(exponent >> (64 * j)) & ((1 << 64) - 1) for j in range(4)]
+    _launch("mod_pow_static", x.data_ptr(), out.data_ptr(), x.shape[-1], *ew,
+            0 if mp is FP else 1, int(inverse))
+    return out
+
+
 def mod_pow_static(x: torch.Tensor, exponent: int, mp: ModParams = FR) -> torch.Tensor:
     """Batched ``x^exponent mod m`` over canonical ``(NW, n)`` words, for a
     fixed exponent ``0 <= e < 2^256``; ``x = 0`` gives 0 (for ``e > 0``).
-    With ``e = m - 2`` it is the Fermat inverse."""
+    With ``e = m - 2`` it is the inverse: the kernel runs a binary GCD
+    instead of the ladder."""
     dev = _check(x, "mod_pow_static x", lead=(NW,))
     if x.dim() != 2:
         raise ValueError("mod_pow_static: expected (NW, n)")
@@ -376,11 +409,7 @@ def mod_pow_static(x: torch.Tensor, exponent: int, mp: ModParams = FR) -> torch.
         raise ValueError("mod_pow_static: exponent out of range")
     if dev == "cpu":
         return mod_pow_plain(x, e, mp)
-    out = torch.empty_like(x)
-    ew = [(e >> (64 * j)) & ((1 << 64) - 1) for j in range(4)]
-    _launch("mod_pow_static", x.data_ptr(), out.data_ptr(), x.shape[-1], *ew,
-            0 if mp is FP else 1)
-    return out
+    return _mod_pow_launch(x, e, mp, is_inverse(e, mp))
 
 
 # ---------------------------------------------------------------------------

@@ -51,9 +51,9 @@ def test_points_round_trip_and_convert():
     arr = torch.as_tensor(curve_t.points_from_host(tp))
     assert _affine(curve_t.points_to_host(arr)) == _affine(tp)
     # the JAX package's (3, NLZ, n) Montgomery arrays carry across exactly
-    assert torch.equal(convert.points_from_jax(cj.points_from_host(jp)), arr)
+    assert torch.equal(convert.points_from_jax(cj.points_from_host(jp), device="cpu"), arr)
     sc = [0, 1, 12345, (1 << 251) + 7]
-    assert torch.equal(convert.scalars_from_jax(cj.scalars_from_host(sc)),
+    assert torch.equal(convert.scalars_from_jax(cj.scalars_from_host(sc), device="cpu"),
                        torch.as_tensor(curve_t.scalars_from_host(sc)))
     assert [int(s) for s in curve_t.scalars_to_host(torch.as_tensor(curve_t.scalars_from_host(sc)))] == sc
 
@@ -61,12 +61,13 @@ def test_points_round_trip_and_convert():
 def test_point_add_matches_jax_plain_and_host():
     a, b = _edge_pairs()
     ja, jb = cj.points_from_host(a), cj.points_from_host(b)
-    got = kernels.point_add(convert.points_from_jax(ja), convert.points_from_jax(jb))
+    got = kernels.point_add(convert.points_from_jax(ja, device="cpu"),
+                            convert.points_from_jax(jb, device="cpu"))
     want = [x + y for x, y in zip(a, b)]
     assert _affine(curve_t.points_to_host(got)) == _affine(want)
     # the JAX package's plain formula, run eagerly (no whole-program compile)
     jout = np.asarray(cj._point_add(jnp.asarray(ja), jnp.asarray(jb)))
-    assert _affine(curve_t.points_to_host(convert.points_from_jax(jout))) == _affine(want)
+    assert _affine(curve_t.points_to_host(convert.points_from_jax(jout, device="cpu"))) == _affine(want)
 
 
 def test_point_add_matches_jax_pallas_kernel():
@@ -77,7 +78,8 @@ def test_point_add_matches_jax_pallas_kernel():
     ja, jb = cj.points_from_host(a), cj.points_from_host(b)
     lazy = jkernels.point_add(ja, jb)
     jout = jkernels.point_add(lazy, jb)
-    tout = kernels.point_add(convert.points_from_jax(np.asarray(lazy)), convert.points_from_jax(jb))
+    tout = kernels.point_add(convert.points_from_jax(np.asarray(lazy), device="cpu"),
+                             convert.points_from_jax(jb, device="cpu"))
     assert _affine(curve_t.points_to_host(tout)) == _affine(cj.points_to_host(jout))
     assert _affine(cj.points_to_host(jout)) == _affine([x + y + y for x, y in zip(a, b)])
 

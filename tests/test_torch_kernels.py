@@ -88,7 +88,8 @@ def test_scan_matches_jax_pallas_scan():
     jx = cj.points_from_host(pts).reshape(3, -1, T, L)
     jout = np.asarray(jkernels.point_scan_steps_inner(jx))
     tout = kernels.point_scan_steps_inner(
-        convert.points_from_jax(jx.reshape(3, -1, T * L)).reshape(3, NW, T, L).contiguous())
+        convert.points_from_jax(jx.reshape(3, -1, T * L), device="cpu")
+        .reshape(3, NW, T, L).contiguous())
     for t in range(T):
         want = cj.points_to_host(jout[:, :, t])
         assert _affine(curve_t.points_to_host(tout[:, :, t])) == _affine(want)
@@ -106,7 +107,7 @@ def test_scan_steps_matches_jax_pallas_scan():
     pts = _jax_points(T * L, 11)
     jx = cj.points_from_host(pts).reshape(3, -1, T, L).transpose(0, 2, 1, 3)   # (3, T, NLZ, L)
     jout = np.asarray(jkernels.point_scan_steps(jnp.asarray(jx)))
-    tx = convert.points_from_jax(cj.points_from_host(pts)).reshape(3, NW, T, L)
+    tx = convert.points_from_jax(cj.points_from_host(pts), device="cpu").reshape(3, NW, T, L)
     tout = kernels.point_scan_steps(tx.transpose(1, 2).contiguous())
     assert tout.shape == (3, T, NW, L)
     for t in range(T):
@@ -140,7 +141,7 @@ def test_horner_matches_jax_pallas_horner():
     pts = _jax_points(nw * k, 2, identity_every=4)
     jw = np.stack([cj.points_from_host(pts[w * k : (w + 1) * k]) for w in range(nw)])
     jout = cj.points_to_host(jkernels.point_horner_multi(jw, c))
-    tw = torch.stack([convert.points_from_jax(jw[w]) for w in range(nw)]).contiguous()
+    tw = torch.stack([convert.points_from_jax(jw[w], device="cpu") for w in range(nw)]).contiguous()
     tout = curve_t.points_to_host(kernels.point_horner_multi(tw, c))
     assert _affine(tout) == _affine(jout)
     want = []
@@ -217,7 +218,7 @@ def test_reduce_matches_jax_reference_and_host(n):
     for p in pts:
         want = want + p
     jx = cj.points_from_host(pts)
-    tout = kernels.point_reduce(convert.points_from_jax(jx))
+    tout = kernels.point_reduce(convert.points_from_jax(jx, device="cpu"))
     assert tout.shape == (3, NW, 1)
     assert _affine(curve_t.points_to_host(tout)) == _affine([want])
     if n == 2:  # the JAX package's plain reduction, run eagerly
@@ -241,6 +242,108 @@ def test_mod_pow_matches_host_pow(name):
     assert words_to_ints(kernels.mod_pow_static(x[:, :3].contiguous(), 0, mp)) == [1, 1, 1]
     with pytest.raises(ValueError):
         kernels.mod_pow_static(x, 1 << 256, mp)
+
+
+# ---------------------------------------------------------------------------
+# mod_pow_static's inverse: csrc/mod_pow.cu's binary GCD, transcribed
+# ---------------------------------------------------------------------------
+
+GCD_ROUNDS, GCD_STEPS = 17, 31
+_M31 = (1 << 31) - 1
+
+
+def _gcd_inverse_model(x: int, m: int) -> int:
+    """``mod_inv_kernel`` in Python ints, round for round: the kernel's
+    64-bit approximations (the top 33 bits at ``len = max(len(a), len(b),
+    64)`` over the low 31), 31 steps a round with its selects, the signed
+    factors applied as magnitudes and signs, and ``u, v`` updated with the
+    Montgomery division by 2^31; a fixed 17 rounds."""
+    minv = (-pow(m, -1, 1 << 31)) & _M31
+    a, b, u, v = x, m, 1, 0
+    for _ in range(GCD_ROUNDS):
+        sh = max(a.bit_length(), b.bit_length(), 64) - 33
+        at = (((a >> sh) & ((1 << 33) - 1)) << 31) | (a & _M31)
+        bt = (((b >> sh) & ((1 << 33) - 1)) << 31) | (b & _M31)
+        f0, g0, f1, g1 = 1, 0, 0, 1
+        for _ in range(GCD_STEPS):
+            odd = at & 1
+            swap = odd and at < bt
+            na = (bt - at) if swap else (at - bt) if odd else at
+            bt = at if swap else bt
+            sf, sg = (f1, g1) if swap else (f0, g0)
+            f1, g1 = (f0, g0) if swap else (f1, g1)
+            f0, g0 = (sf - f1, sg - g1) if odd else (sf, sg)
+            at, f1, g1 = na >> 1, f1 << 1, g1 << 1
+        assert abs(f0) + abs(g0) <= 1 << 31 and abs(f1) + abs(g1) <= 1 << 31
+
+        def lin_comb(f, g):        # |a f + b g| / 2^31 and its sign
+            t = a * f + b * g
+            assert t % (1 << 31) == 0 and abs(t) < 1 << 283
+            return abs(t) >> 31, t < 0
+
+        def mont_comb(f, g):       # (u f + v g) / 2^31 mod m
+            t = (m - u if f < 0 else u) * abs(f) + (m - v if g < 0 else v) * abs(g)
+            assert t <= m << 31
+            r = (t + ((t * minv) & _M31) * m) >> 31
+            return r - m if r >= m else r
+
+        (na, nega), (nb, negb) = lin_comb(f0, g0), lin_comb(f1, g1)
+        if nega:
+            f0, g0 = -f0, -g0
+        if negb:
+            f1, g1 = -f1, -g1
+        u, v, a, b = mont_comb(f0, g0), mont_comb(f1, g1), na, nb
+        assert a < 1 << 252 and b < 1 << 252
+    return v
+
+
+@pytest.mark.parametrize("name", ["FP", "FR"])
+def test_gcd_inverse_model_matches_pow(name):
+    """The kernel's GCD gives ``pow(x, -1, m)`` (0 for 0) on edge inputs and
+    1,000 seeded random ones."""
+    m = (FP if name == "FP" else FR).modulus
+    rng = np.random.default_rng(17 if name == "FP" else 18)
+    edge = [0, 1, 2, 3, m - 1, m - 2, (m - 1) // 2, (1 << 251) - 1, (1 << 251) - 2]
+    edge += [1 << k for k in range(0, 252, 3) if 1 << k < m] + [(1 << k) - 1 for k in range(2, 252, 5)]
+    edge += [m - (1 << k) for k in range(0, 250, 7)]
+    edge += [int(("1" * r + "0" * r) * (250 // (2 * r)), 2) % m for r in (1, 2, 3, 8, 31, 32, 33, 64, 100)]
+    xs = edge + [int.from_bytes(rng.bytes(32), "little") % m for _ in range(1000)]
+    assert [_gcd_inverse_model(x, m) for x in xs] == [pow(x, -1, m) if x else 0 for x in xs]
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """The CUDA branch of the wrappers on CPU tensors: ``_check`` reports a
+    card and ``_launch`` records its arguments instead of launching."""
+    calls = []
+    monkeypatch.setattr(kernels, "_check", lambda t, *a, **kw: "cuda")
+    monkeypatch.setattr(kernels, "_launch", lambda name, *args: calls.append((name, args)))
+    return calls
+
+
+@pytest.mark.parametrize("name", ["FP", "FR"])
+def test_mod_pow_takes_the_gcd_exactly_at_m_minus_2(recorded_launches, name):
+    mp, other = (FP, FR) if name == "FP" else (FR, FP)
+    m = mp.modulus
+    x = torch.zeros((NW, 3), dtype=torch.int64)
+    cases = [m - 2, m - 1, m - 3, other.modulus - 2, 0, 1, 65537, (1 << 255) + 12345]
+    for e in cases:
+        kernels.mod_pow_static(x, e, mp)
+    flags = [args[-1] for name_, args in recorded_launches]
+    assert [name_ for name_, _ in recorded_launches] == ["mod_pow_static"] * len(cases)
+    assert flags == [1, 0, 0, 0, 0, 0, 0, 0]
+    assert [kernels.is_inverse(e, mp) for e in cases] == [bool(f) for f in flags]
+
+
+def test_point_add_design_by_width(recorded_launches):
+    """The narrow design up to ``POINT_ADD_NARROW_MAX`` lanes, the wide one
+    above; both count as ``point_add`` launches."""
+    top = kernels.POINT_ADD_NARROW_MAX
+    for n in (1, 16, top, top + 1):
+        a = torch.zeros((3, NW, n), dtype=torch.int64)
+        kernels.point_add(a, a)
+    assert [(name, args[3], args[4]) for name, args in recorded_launches] == [
+        ("point_add", 1, 1), ("point_add", 16, 1), ("point_add", top, 1), ("point_add", top + 1, 0)]
 
 
 def test_wrappers_reject_bad_operands():
@@ -436,8 +539,9 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
     b = _random_points_t(40, 2, dev)
     b[..., 1::4] = a[..., 1::4]
     b = b.contiguous()
-    if name == "point_add":
-        got, want = kernels.point_add(a, b), curve_t._point_add(a, b)
+    if name == "point_add":   # both designs, whichever the width picks
+        got = torch.stack([kernels._point_add_launch(a, b, d) for d in ("narrow", "wide")])
+        want = torch.stack([curve_t._point_add(a, b)] * 2)
     elif name == "point_scan_steps_inner":
         x = a.reshape(3, NW, 5, 8).contiguous()
         got, want = kernels.point_scan_steps_inner(x), kernels.point_scan_plain(x)
@@ -454,9 +558,15 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
         got, want = kernels.point_horner_multi(w, 9), kernels.point_horner_plain(w, 9)
     elif name == "point_reduce":
         got, want = kernels.point_reduce(a), kernels.point_reduce_plain(a)
-    elif name == "mod_pow_static":
+    elif name == "mod_pow_static":   # the GCD (e = m - 2) and the ladder, forced at m - 2 too
         x = a[0].contiguous()
-        got, want = kernels.mod_pow_static(x, FP.modulus - 2, FP), kernels.mod_pow_plain(x, FP.modulus - 2, FP)
+        xr = (a[0] & ((1 << 59) - 1)).contiguous()               # < r
+        got, want = [], []
+        for v, mp in ((x, FP), (xr, FR)):
+            for e, inverse in ((mp.modulus - 2, True), (mp.modulus - 2, False), (65537, False)):
+                got.append(kernels._mod_pow_launch(v, e, mp, inverse))
+                want.append(kernels.mod_pow_plain(v, e, mp))
+        got, want = torch.stack(got), torch.stack(want)
     else:
         _probes_match_plain_on_card(name, dev)
         return

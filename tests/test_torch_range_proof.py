@@ -86,8 +86,8 @@ def test_generators_match_jax(port_82):
         assert [(p.x, p.y) for p in mine] == [(p.x, p.y) for p in theirs]
     # the device tensors the prover caches equal the JAX package's arrays, carried across
     G_dev, H_dev = generators.device_gens(bp_gens, 8, 2, torch.device("cpu"))
-    assert torch.equal(G_dev, convert.points_from_jax(cj.points_from_host(j_gens.G(8, 2))))
-    assert torch.equal(H_dev, convert.points_from_jax(cj.points_from_host(j_gens.H(8, 2))))
+    assert torch.equal(G_dev, convert.points_from_jax(cj.points_from_host(j_gens.G(8, 2)), device="cpu"))
+    assert torch.equal(H_dev, convert.points_from_jax(cj.points_from_host(j_gens.H(8, 2)), device="cpu"))
 
 
 @pytest.mark.parametrize("n,m", sorted(pinned.DIGESTS))
