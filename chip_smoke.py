@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py    # from the repository root, on a machine with one card
-    python3 chip_smoke.py --ab DIR    # also A/B against an older tree's csrc in DIR
+    python3 chip_smoke.py --ab DIR    # also A/B against the one-block point_reduce, csrc in DIR
 
 Phases, one JSON object per line on standard output:
 
@@ -12,7 +12,11 @@ Phases, one JSON object per line on standard output:
 3. ``kernel``: each kernel against its plain PyTorch version on the card:
    ``point_add``, the inner scan and Horner at the shapes each of the
    prove, verify, msm, r1cs_prove and r1cs_verify paths launches them with,
-   the reduction at the aggregated m = 64 proof's, the ladder at the range
+   the segmented reduction (``point_reduce``) at every sum the paths run
+   (prove's A bit sum, 1 x 2nm; every path's bucket tails; the fixed-base
+   commitments of prove, m + 2 x 64, and of the msm phase's set-up,
+   2^17 x 64), at a ragged shape and at a one-level shape (S x 2), the
+   ladder at the range
    and R1CS provers', ``point_scan_steps`` (which no
    path runs) at the prove scan's and the vector ops (no path either) at
    (4, 4,096); both scans also at ``PART_BLOCK_SCAN`` (a part-filled
@@ -21,7 +25,14 @@ Phases, one JSON object per line on standard output:
    exact on the 64-bit words.
    Times by CUDA events around 20 back-to-back calls (``kernel_ms``, host
    launch gaps included), by torch.profiler's kernel rows (``device_ms``,
-   the kernel alone), and of the one plain call checked (``plain_ms``).
+   the kernel alone; for ``point_reduce`` the sum of a call's passes), and
+   of the one plain call checked (``plain_ms``).  ``point_reduce`` rows
+   carry their plan, the throughput bound and the dependency bound
+   (ceil(log2 n) adds at Horner's add latency from this run), the launches
+   one call made (read from the counter), and in turns the former halving
+   tree of ``point_add`` launches (``vs_halving_tree``); ``kernel_plans``
+   holds every tree depth (1 to 6 levels a pass) and a fold, each run as
+   its own plan, to the plain version of that plan word for word.
    ``point_add`` rows name the design the wrapper picked (``narrow``: 8
    lanes an add, up to ``POINT_ADD_NARROW_MAX`` lanes; ``wide``: a thread
    an add); ``mod_pow_static`` rows the branch of each case (``gcd`` for
@@ -39,7 +50,9 @@ Phases, one JSON object per line on standard output:
    the JAX package's (``mpc_bulletproof_tpu_torch/pinned.py``).  Launch
    counts are read around one proof, then the median of warm proofs.
    ``profile``: device time by kernel over one more warm proof
-   (torch.profiler), each port kernel's sum (``port_kernels``) and the
+   (torch.profiler), each port kernel's sum (``port_kernels``), the sums
+   by CUDA source beside the launch counters of the same proof
+   (``by_source``, ``counts_match``), all device launches and the
    device's idle share.
 5. ``verify``: ``verify_multiple`` of that proof; two tampered copies (t_x + 1,
    L_1 swapped with R_1) must raise ``VerificationError``; ``verify_batch``
@@ -64,13 +77,13 @@ Phases, one JSON object per line on standard output:
    the TPU shapes: each held bit for bit to its plain version (NaN equal to
    NaN), then timed at the full repetition counts (ms, Gop/s, the bound,
    the share of the card's resident threads the shape fills).
-9. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: a baseline tree's
-   ``point_add``, ``mod_pow_static`` and ``point_horner_multi``, built
-   from DIR (that tree's ``mpc_bulletproof_tpu_torch/csrc``), against
-   this tree's: equal outputs, device times in turns (base, this, this,
-   base) at the sweep widths, Horner's path shapes and the inverse's path
-   shapes, and the device time by kernel of one warm prove and
-   r1cs_prove proof under each.
+9. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
+   ``point_reduce`` this one replaced, built from DIR (an older tree's
+   ``mpc_bulletproof_tpu_torch/csrc``), against this tree's at the A bit
+   sum's shape: equal as points, device times in turns (base, this, this,
+   base); then one warm prove and r1cs_prove proof each profiled in the
+   same turns, the base on the former route (that kernel for the A sum, the
+   halving tree of ``point_add`` launches for every other sum).
 10. the ``kernels`` summary with launches per path (for the scans and
    Horner also their ptxas registers and spills, launch configurations
    and resident warps a scheduler), the card's ``nvidia-smi`` name and
@@ -117,6 +130,13 @@ ADD_PRODUCTS = {"wide": 14, "narrow": 3}
 # the profiler's kernel name of each point_add design
 ADD_KERNEL = {"wide": "point_add_kernel(", "narrow": "point_add_narrow_kernel("}
 GCD_STEPS = 17 * 31
+# point_reduce: a ragged row whose segments span blocks, a row of one
+# 1-level pass (four sub-trees a block, the last block part-filled), the
+# fixed-base commitments of the msm phase's set-up (2^17 points a call, 64
+# windows each)
+RAGGED_REDUCE = (3, 1000)
+ONE_LEVEL_REDUCE = (37, 2)
+MSM_SETUP_COMMITS = 1 << 17
 
 # Bounds: NVIDIA's published H100 SXM rates (data sheet, dense, 700 W):
 # 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores.  There is
@@ -162,10 +182,11 @@ REPLACES = {
 PATH_KERNELS = {
     "prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
               "mod_pow_static"},
-    "verify": {"point_add", "point_scan_steps_inner", "point_horner_multi"},
-    "msm": {"point_add", "point_scan_steps_inner", "point_horner_multi"},
-    "r1cs_prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "mod_pow_static"},
-    "r1cs_verify": {"point_add", "point_scan_steps_inner", "point_horner_multi"},
+    "verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
+    "msm": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
+    "r1cs_prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
+                   "mod_pow_static"},
+    "r1cs_verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
     "probes": {"probe_chain", "probe_xor_chain", "probe_accum"},
 }
 
@@ -253,22 +274,31 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float | None:
-    """Device time of one run of ``fn()``, which launches one kernel, from
-    torch.profiler's kernel rows (:func:`device_ms_by_name`).  Unlike
-    :func:`cuda_ms` it leaves out the gaps in which the device waits for the
-    host to launch: at small widths those are most of the events' time."""
-    return device_ms_by_name([("", fn)], reps)[""]
+def device_ms(fn, reps: int, per_call: bool = False, counts: dict | None = None) -> float | None:
+    """Device time of one run of ``fn()``, which launches one kernel (or,
+    ``per_call``, any number), from torch.profiler's kernel rows
+    (:func:`device_ms_by_name`; ``counts[""]`` gets the launches recorded).
+    Unlike :func:`cuda_ms` it leaves out the gaps in which the device waits
+    for the host to launch: at small widths those are most of the events'
+    time."""
+    return device_ms_by_name([("", fn)], reps, counts, per_call)[""]
 
 
-def device_ms_by_name(runs, reps: int, counts: dict | None = None) -> dict:
+def device_ms_by_name(runs, reps: int, counts: dict | None = None, per_call: bool = False) -> dict:
     """Device time of one kernel launch per ``(kernel name prefix, fn)``,
     from ONE torch.profiler session over ``reps`` calls of each ``fn`` (one
     launch each, after one warm-up each): the kernel rows whose name, less
     a leading ``void``, starts with the prefix, over the launches the
     profiler recorded (it can record fewer than ``reps`` of a session's
     first kernel; ``counts``, if given, gets the recorded launches per
-    prefix).  None where the profiler saw no such kernel."""
+    prefix).  None where the profiler saw no such kernel.  ``per_call``:
+    the time of one call of ``fn``, however many kernels it launches
+    (copies included; give one run, prefix ``""``): each kernel row's mean
+    over its recorded launches times its whole launches a call (its
+    recorded count over ``reps``, rounded up, since the profiler drops
+    some), summed."""
+    import math
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -285,12 +315,45 @@ def device_ms_by_name(runs, reps: int, counts: dict | None = None) -> dict:
             if ev.device_type == DeviceType.CUDA]
     out = {}
     for prefix, _ in runs:
-        hits = [(us, n) for key, us, n in rows if key.removeprefix("void ").startswith(prefix)]
+        hits = [(us, n) for key, us, n in rows if key.removeprefix("void ").startswith(prefix) and n]
         total, calls = sum(us for us, _ in hits), sum(n for _, n in hits)
         if counts is not None:
             counts[prefix] = calls
-        out[prefix] = total / calls / 1e3 if total > 0 else None
+        if per_call:
+            out[prefix] = sum(us / n * math.ceil(n / reps) for us, n in hits) / 1e3
+        else:
+            out[prefix] = total / calls / 1e3 if total > 0 else None
     return out
+
+
+def halving_tree(pts):
+    """The former ``_reduce_sum_tree`` of ``ops/msm.py``, kept here for the A/B
+    only: the sum along the last axis by a halving tree of ``point_add``
+    launches, each level's halves copied to contiguous tensors."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import kernels
+    from mpc_bulletproof_tpu_torch.ops.curve_t import identity
+
+    w = pts.shape[-1]
+    while w > 1:
+        half = (w + 1) // 2
+        if 2 * half != w:
+            pts = torch.cat([pts, identity((*pts.shape[2:-1], 2 * half - w), pts.device)], dim=-1)
+        pts = kernels.point_add(pts[..., :half].contiguous(), pts[..., half:].contiguous())
+        w = half
+    return pts
+
+
+def affine_equal(a, b) -> bool:
+    """Whether two ``(3, NW, ..., 1)`` sums are the same points."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import curve_t
+    from mpc_bulletproof_tpu_torch.ops.limb import NW
+
+    aff = lambda t: curve_t.to_affine_mont(t.reshape(3, NW, -1).contiguous())
+    return bool(torch.equal(aff(a), aff(b)))
 
 
 def read_launches(path: str) -> dict:
@@ -457,7 +520,8 @@ def shuffle_widths(k: int) -> tuple[int, int]:
 
 def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = MSM_LOG2N,
                 shuffle_k: int = SHUFFLE_K) -> dict:
-    """The shapes at which each path launches the point kernels.  prove: an
+    """The shapes at which each path launches the point kernels (``tail``:
+    the bucket tails' segment sums, ``point_reduce``).  prove: an
     IPP round's L/R pair of split-table MSMs (``point_add`` at its chunk
     lane scan, Horner over 8 windows of both MSMs); verify: the (n, m)
     mega-check's MSM; msm: 2^log2n points (``point_add`` at the bucket
@@ -474,7 +538,8 @@ def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = M
     W, n = 2 * 8, msm_mod.SPLIT_CHUNKS * (nm + 1)
     nt, T = msm_mod._chunk_shape(W, n)
     shapes = {"prove": {"n": n, "c": msm_mod.SPLIT_WINDOW, "W": W, "nt": nt, "T": T,
-                        "add": (W, nt), "horner": (8, 2)}}
+                        "add": (W, nt), "tail": (W, 1 << (msm_mod.SPLIT_WINDOW - 1)),
+                        "horner": (8, 2)}}
     ipp_n, r1cs_width = shuffle_widths(shuffle_k)
     phase = [(f"r1cs_prove:{name}", n, 1) for name, n in shuffle_phase_widths(shuffle_k).items()
              if n >= backend._DEVICE_MIN]
@@ -485,7 +550,7 @@ def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = M
         W = msm_mod._window_group(k * nw, n)
         nt, T = msm_mod._chunk_shape(W, n)
         shapes[path] = {"n": n, "c": c, "W": W, "nt": nt, "T": T, "add": (W, 1 << (c - 1)),
-                        "horner": (nw, k)}
+                        "tail": (W, 1 << (c - 1)), "horner": (nw, k)}
     return shapes
 
 
@@ -589,10 +654,12 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
           lambda: kernels.point_scan_steps_plain(part_x), scan_bound(T, L), {"T": T, "L": L},
           word_dim=2, launch=scan_launch(L))
     del part_x
-    reduce_x = random_points(pool, 2 * nm, gen)
-    check("point_reduce", "prove", (reduce_x,), kernels.point_reduce,
-          lambda: kernels.point_reduce_plain(reduce_x),
-          bound(POINT_BYTES * (2 * nm + 1), (2 * nm - 1) * POINT_ADD_OPS), {"n": 2 * nm})
+    nw_p, c_p = shapes["prove"]["horner"][0], shapes["prove"]["c"]
+    add_ms = rows["point_horner_multi"]["prove"]["device_ms"] / ((nw_p - 1) * (c_p + 1))
+    for path, (S, n) in reduce_cases(shapes, m_parties, nm).items():
+        rows.setdefault("point_reduce", {})[path] = reduce_row(gpu, path, S, n, pool, gen, add_ms)
+        torch.cuda.empty_cache()
+    reduce_plans = reduce_plans_check(gpu, pool, gen)
 
     def scalars(count, mp):
         xs = torch.randint(-(2**63), 2**63 - 1, (NW, count), generator=gen, device=dev)
@@ -664,6 +731,7 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
     sweep = point_add_sweep(gpu, pool, gen)
     results = {"vec2": check_vec_ops(gpu, scalars)}
     rows["point_add"]["prove"]["sweep"] = sweep
+    rows["point_reduce"]["prove"]["plans_check"] = reduce_plans["max_abs_err"]
     rows["mod_pow_static"]["prove"]["gcd_vs_ladder"] = pow_ab
     for name, by_path in rows.items():
         first = by_path.get("prove", next(iter(by_path.values())))
@@ -671,13 +739,106 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
                          "max_abs_err": max(r["max_abs_err"] for r in by_path.values()),
                          "at_paths": {p: {k: r[k] for k in ("shape", "max_abs_err", "kernel_ms", "device_ms",
                                                             "plain_ms", "bound_ms", "bound_by", "launch",
-                                                            "design", "serial")
+                                                            "design", "serial", "plan", "launches_per_call",
+                                                            "dependency_bound_ms", "vs_halving_tree")
                                           if k in r}
                                       for p, r in by_path.items()}}
     bad = [n for n, r in results.items() if not r["equal"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
     return results
+
+
+def reduce_cases(shapes: dict, m_parties: int, nm: int) -> dict:
+    """``{row: (S, n)}``, every segmented sum the paths run: prove's A bit
+    sum (one segment of 2nm points), its bucket tails and its fixed-base
+    commitments (m + 2 of 64 windows); each other path's bucket tails
+    (:func:`path_shapes`); the msm phase's set-up commitments; and a ragged
+    shape whose segments span blocks and a shape of one 1-level pass."""
+    from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
+
+    windows = 2 * msm_mod.FB_WINDOWS
+    cases = {"prove": (1, 2 * nm), "prove:tail": shapes["prove"]["tail"],
+             "prove:fixed_commit": (m_parties + 2, windows)}
+    cases.update({path: sh["tail"] for path, sh in shapes.items() if path != "prove"})
+    cases.update({"msm_setup:fixed_commit": (MSM_SETUP_COMMITS, windows), "ragged": RAGGED_REDUCE,
+                  "one_level": ONE_LEVEL_REDUCE})
+    return cases
+
+
+def reduce_row(gpu: str, path: str, S: int, n: int, pool, gen, add_ms: float) -> dict:
+    """``point_reduce`` on S segments of n random points against its plain
+    version (word for word); the launches of one call, read from the
+    counter and held to the plan's passes; its time by events and per call
+    by the profiler (every pass); the throughput bound and the dependency
+    bound (ceil(log2 n) dependent adds at ``add_ms``, Horner's add on one
+    warp, measured in this run).  Below 2^20 points also, in turns, the
+    former halving tree of ``point_add`` launches (``vs_halving_tree``; a
+    different association, so the sums are held equal as points)."""
+    import math
+
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import kernels
+    from mpc_bulletproof_tpu_torch.ops.limb import NW
+
+    x = random_points(pool, S * n, gen)
+    x = (x if S == 1 else x.reshape(3, NW, S, n)).contiguous()
+    plan = kernels.point_reduce_plan(S, n)
+    kernels.reset_launches()
+    got = kernels.point_reduce(x)
+    launches = kernels.launches["point_reduce"]
+    if launches != len(plan):
+        raise RuntimeError(f"point_reduce made {launches} launches at {path}, its plan {len(plan)}")
+    torch.cuda.synchronize()
+    want, plain_ms = timed_ms(lambda: kernels.point_reduce_plain(x))
+    run = lambda: kernels.point_reduce(x)
+    recorded: dict = {}
+    bound_ms, bound_by = bound(POINT_BYTES * (S * n + S), S * (n - 1) * POINT_ADD_OPS)
+    res = {"phase": "kernel", "name": "point_reduce", "path": path, "shape": {"S": S, "n": n},
+           "tolerance": 0, "equal": bool(torch.equal(got, want)), "max_abs_err": max_abs_err(got, want, 1),
+           "plan": plan, "launches_per_call": launches, "kernel_ms": cuda_ms(run, 20),
+           "device_ms": device_ms(run, 20, True, recorded), "device_launches_recorded": recorded[""] / 20,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "dependency_bound_ms": math.ceil(math.log2(n)) * add_ms if n > 1 else 0.0,
+           "add_latency_ms": add_ms, "gpu": gpu}
+    if S * n < 1 << 20:
+        if not affine_equal(halving_tree(x), got):
+            raise RuntimeError(f"point_reduce and the halving tree disagree as points at {path}")
+        t = {"halving_tree": [], "point_reduce": []}
+        rec = {"halving_tree": {}, "point_reduce": {}}
+        for who in ("halving_tree", "point_reduce", "point_reduce", "halving_tree"):
+            t[who].append(device_ms(lambda: halving_tree(x) if who == "halving_tree" else run(), 20, True,
+                                    rec[who]))
+        res["vs_halving_tree"] = {k: {"device_ms": v, "launches_recorded": rec[k][""] / 20}
+                                  for k, v in t.items()}
+    emit(res)
+    if not res["equal"]:
+        raise RuntimeError(f"point_reduce disagrees with its plain version at {path}: {res['max_abs_err']}")
+    return res
+
+
+def reduce_plans_check(gpu: str, pool, gen) -> dict:
+    """Every tree depth the kernel has (1 to 6 levels a pass, each repeated
+    until one point is left) and a fold, each run as its own plan on 3
+    segments of 300 points, against :func:`point_reduce_plain` of the same
+    plan, word for word."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import kernels
+    from mpc_bulletproof_tpu_torch.ops.limb import NW
+
+    x = random_points(pool, 3 * 300, gen).reshape(3, NW, 3, 300).contiguous()
+    plans = {f"tree{lv}": [("tree", lv)] * -(-9 // lv) for lv in range(1, kernels.REDUCE_TREE_LEVELS + 1)}
+    plans["fold4"] = [("fold", 4)] + kernels.point_reduce_plan(3, 75)
+    errs = {k: max_abs_err(kernels._point_reduce_launch(x, p), kernels.point_reduce_plain(x, p), 1)
+            for k, p in plans.items()}
+    res = {"phase": "kernel_plans", "name": "point_reduce", "shape": {"S": 3, "n": 300}, "tolerance": 0,
+           "plans": plans, "max_abs_err": errs, "equal": all(e == 0 for e in errs.values()), "gpu": gpu}
+    emit(res)
+    if not res["equal"]:
+        raise RuntimeError(f"point_reduce plans disagree with their plain versions: {errs}")
+    return res
 
 
 def check_vec_ops(gpu: str, scalars) -> dict:
@@ -1210,123 +1371,128 @@ def probes_phase(gpu: str, dev) -> dict:
     return {"launches": launches, "checks": summary}
 
 
-def profile_run(fn, warm_us: float, gpu: str, what: str) -> dict:
-    """Device time by kernel over one warm run of ``fn`` (torch.profiler).
-    The profiler slows the host, so the idle share is also given against
-    the unprofiled median time."""
+def profile_run(fn, warm_us: float, gpu: str, what: str, extra: dict | None = None) -> dict:
+    """Device time by kernel over one warm run of ``fn`` (torch.profiler),
+    with the port's launch counters around the same run.  ``by_source``
+    sums the port's kernels by CUDA source (device µs, launches the
+    profiler recorded, launches counted); ``counts_match`` says whether the
+    two counts agree for every source, as per-run sums need (the profiler
+    can drop launches).  ``extra``: ``{kernel function: (label, [launches
+    counted])}`` for kernels outside this tree's sources (the A/B's
+    baseline; the count is read after the run).  The profiler slows the host, so the idle share is also
+    given against the unprofiled median time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    extra = extra or {}
     torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
+    counted = dict(kernels.launches)
     # device rows only: an aten op's self device time repeats its kernels'
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
                   reverse=True)
     busy_us = sum(r[0] for r in rows)
+    source_of = {**kernel_functions(), **{f: label for f, (label, _) in extra.items()}}
+    by_source = {src: {"device_us": 0.0, "recorded": 0, "counted": 0} for src in set(source_of.values())}
+    for name, (src, _, _) in kernels.KERNELS.items():
+        by_source[src]["counted"] += counted[name]
+    for label, n in extra.values():
+        by_source[label]["counted"] += n[0]
     port: dict = {}
     for us, key, n in rows:
         fname = re.split(r"[<(]", key.removeprefix("void "), maxsplit=1)[0]
-        if fname in kernel_functions():
+        if fname in source_of:
             agg = port.setdefault(fname, {"device_us": 0.0, "count": 0})
             agg["device_us"] += us
             agg["count"] += n
+            by_source[source_of[fname]]["device_us"] += us
+            by_source[source_of[fname]]["recorded"] += n
+    by_source = {k: v for k, v in by_source.items() if v["recorded"] or v["counted"]}
     return {"phase": "profile", "of": what, "wall_us": wall_us, "device_busy_us": busy_us if rows else None,
             "device_idle_share": (1 - busy_us / wall_us) if rows else None,
             "device_idle_share_unprofiled": (1 - busy_us / warm_us) if rows else None,
             "device_launches": sum(r[2] for r in rows) if rows else None,
             "top": [{"name": k[:80], "device_us": us, "count": n} for us, k, n in rows[:25]],
-            "port_kernels": port, "gpu": gpu}
+            "port_kernels": port, "by_source": by_source,
+            "counts_match": all(v["recorded"] == v["counted"] for v in by_source.values()), "gpu": gpu}
 
 
-def kernel_functions() -> set:
-    """The names of the ``__global__`` functions in the port's CUDA sources."""
+def kernel_functions() -> dict:
+    """``{__global__ function: source file}`` over the port's CUDA sources."""
     from mpc_bulletproof_tpu_torch.ops import kernels
 
-    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)")
-    return {m for f in kernels.CSRC.glob("*.cu") for m in pat.findall(f.read_text())}
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)")
+    return {m: f.name for f in kernels.CSRC.glob("*.cu") for m in pat.findall(f.read_text())}
 
 
-# --- A/B against a baseline tree's kernels (``--ab DIR``)
+# --- A/B against a baseline tree's point_reduce (``--ab DIR``)
 
-AB_SOURCES = {"point_add": "point_add.cu", "mod_pow_static": "mod_pow.cu",
-              "point_horner_multi": "point_horner.cu"}
-
-
-def build_ab(src_dir: str) -> dict:
-    """A baseline tree's libraries of point_add, mod_pow_static and
-    point_horner_multi, built from ``src_dir`` (that tree's ``csrc``, e.g.
-    unpacked by ``git archive``) with this tree's nvcc flags, each behind
-    an adapter to this tree's entry signature (the baseline's point_add
-    takes no design flag, its mod_pow no inverse flag: it runs the ladder
-    for every exponent)."""
+def build_ab(src_dir: str):
+    """The one-block ``point_reduce`` (256 threads, entry
+    ``bp_point_reduce(x, out, n, stream)``), built from ``src_dir`` (that
+    tree's ``csrc``, e.g. unpacked by ``git archive``) with this tree's nvcc
+    flags."""
     import ctypes
     from pathlib import Path
 
     from mpc_bulletproof_tpu_torch.ops import kernels
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, source in AB_SOURCES.items():
-        lib = kernels.BUILD_DIR / f"ab-{Path(source).stem}.so"
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib), str(Path(src_dir) / source)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    P, LL, I, U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint64
-    argtypes = {"point_add": [P, P, P, LL, P], "mod_pow_static": [P, P, LL, U, U, U, U, I, P],
-                "point_horner_multi": [P, P, I, I, LL, P]}
-    fns = {}
-    for name, (proc, lib) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the baseline's {AB_SOURCES[name]}:\n{out}")
-        fn = getattr(ctypes.CDLL(str(lib)), kernels.KERNELS[name][1])
-        fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
-        fns[name] = fn
-    add, pow_ = fns["point_add"], fns["mod_pow_static"]
-    return {"point_add": lambda a, b, o, n, narrow, st: add(a, b, o, n, st),
-            "mod_pow_static": lambda x, o, n, e0, e1, e2, e3, field, inverse, st:
-                pow_(x, o, n, e0, e1, e2, e3, field, st),
-            "point_horner_multi": fns["point_horner_multi"]}
+    lib = kernels.BUILD_DIR / "ab-point_reduce.so"
+    out = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib),
+                          str(Path(src_dir) / "point_reduce.cu")], capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the baseline's point_reduce.cu:\n{out.stdout}{out.stderr}")
+    fn = ctypes.CDLL(str(lib)).bp_point_reduce
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int
+    return fn
 
 
-def under(fns: dict | None, f):
-    """``f()`` with the wrappers launching the libraries of ``fns`` (the baseline's)
-    in place of this tree's; ``None`` runs this tree's."""
-    from mpc_bulletproof_tpu_torch.ops import kernels
+def base_reduce_sum(old_fn, calls: list):
+    """The former route in place of ``msm._reduce_sum``: a ``(3, NW, n)`` sum (the
+    A bit sum) on its one-block kernel, every segmented sum (bucket tails,
+    fixed-base commitments) on the halving tree.  ``calls[0]`` counts the
+    kernel's launches."""
+    import torch
 
-    if fns is None:
-        return f()
-    for name in fns:
-        kernels._fn(name)
-    saved = {name: kernels._FNS[name] for name in fns}
-    kernels._FNS.update(fns)
-    try:
-        return f()
-    finally:
-        kernels._FNS.update(saved)
+    from mpc_bulletproof_tpu_torch.ops.limb import NW
+
+    def reduce_sum(pts):
+        pts = pts.contiguous()
+        if pts.dim() != 3:
+            return halving_tree(pts)
+        out = torch.empty((3, NW, 1), dtype=torch.int64, device=pts.device)
+        rc = old_fn(pts.data_ptr(), out.data_ptr(), pts.shape[-1], torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the baseline's point_reduce failed to launch ({rc})")
+        calls[0] += 1
+        return out
+    return reduce_sum
 
 
 def ab_phase(gpu: str, dev, src_dir: str, proofs: dict) -> dict:
-    """A baseline's point_add, mod_pow_static and point_horner_multi against this
-    tree's, in one call: held equal, then timed by the profiler in turns
-    (base, this tree, this tree, base), point_add at every width of the
-    sweep, Horner at every path shape, the inverse at the path shapes; then
-    the device time by kernel of one warm proof of each path in ``proofs``
-    (``{path: (make, run)}``: ``run(make())`` proves once) in the same
-    turns."""
+    """The one-block point_reduce, built from ``src_dir``, against this tree's, in one
+    call: at the A bit sum's shape (1 x 2nm points) the sums equal as
+    points, then device times in turns (base, this, this, base); then one
+    warm proof of each path in ``proofs`` (``{path: (make, run)}``:
+    ``run(make())`` proves once) profiled in the same turns, the base
+    running the former route (:func:`base_reduce_sum`: the one-block kernel for
+    the A sum, the halving tree for every other sum)."""
     import torch
 
-    from mpc_bulletproof_tpu_torch.constants import P, R
     from mpc_bulletproof_tpu_torch.ops import curve_t, kernels
     from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
     from mpc_bulletproof_tpu_torch.ops.curve import StarkPoint
-    from mpc_bulletproof_tpu_torch.ops.limb import FP, FR, NW
+    from mpc_bulletproof_tpu_torch.ops.limb import NW
 
     old = build_ab(src_dir)
     gen = torch.Generator(device=dev)
@@ -1336,54 +1502,43 @@ def ab_phase(gpu: str, dev, src_dir: str, proofs: dict) -> dict:
     for _ in range(63):
         host_pool.append(host_pool[-1] + host_pool[-1] + G)
     pool = torch.as_tensor(curve_t.points_from_host(host_pool), device=dev)
-    order = (("base", old), ("this", None), ("this", None), ("base", old))
+    order = ("base", "this", "this", "base")
 
-    def turns(fn):
-        a, b = under(old, fn), fn()
-        torch.cuda.synchronize()
-        err = max_abs_err(a, b, 1 if a.dim() == 3 else 0)
-        if err:
-            raise RuntimeError(f"the baseline's kernel and this tree's disagree ({err})")
-        t = {"base": [], "this": []}
-        for who, fns in order:
-            t[who].append(device_ms(lambda: under(fns, fn), 20))
-        return t
+    n = 2 * N_BITS * M_PARTIES
+    x = random_points(pool, n, gen)
+    calls = [0]
+    base = base_reduce_sum(old, calls)
+    if not affine_equal(base(x), kernels.point_reduce(x)):
+        raise RuntimeError("the baseline's point_reduce and this tree's disagree")
+    t = {"base": [], "this": []}
+    rec = {"base": {}, "this": {}}
+    for who in order:
+        t[who].append(device_ms(lambda: base(x) if who == "base" else kernels.point_reduce(x), 20, True,
+                                rec[who]))
+    row = {"phase": "ab", "name": "point_reduce", "shape": {"S": 1, "n": n}, "device_ms": t,
+           "launches_recorded": {k: v[""] / 20 for k, v in rec.items()}, "gpu": gpu}
+    emit(row)
 
-    rows = {"point_add": [], "point_horner_multi": [], "mod_pow_static": []}
-    for lanes in ADD_SWEEP:
-        a, b = add_operands(pool, lanes, gen)
-        rows["point_add"].append({"lanes": lanes, "design": kernels.point_add_design(lanes),
-                                  "device_ms": turns(lambda: kernels.point_add(a, b))})
-        emit({"phase": "ab", "name": "point_add", **rows["point_add"][-1], "gpu": gpu})
-    seen = set()
-    for path, sh in path_shapes(N_BITS, M_PARTIES, MSM_LOG2N, SHUFFLE_K).items():
-        nw, k = sh["horner"]
-        if (nw, sh["c"], k) in seen:
-            continue
-        seen.add((nw, sh["c"], k))
-        w = random_points(pool, nw * k, gen).reshape(3, NW, nw, k).permute(2, 0, 1, 3).contiguous()
-        rows["point_horner_multi"].append({"path": path, "nw": nw, "c": sh["c"], "k": k,
-                                           "device_ms": turns(lambda: kernels.point_horner_multi(w, sh["c"]))})
-        emit({"phase": "ab", "name": "point_horner_multi", **rows["point_horner_multi"][-1], "gpu": gpu})
-    nm = N_BITS * M_PARTIES
-    for n, mp, e in ((2, FP, P - 2), (1, FR, R - 2), (M_PARTIES, FP, P - 2),
-                     (msm_mod.SPLIT_CHUNKS * (2 * nm + 1), FP, P - 2)):
-        x = torch.randint(-(2**63), 2**63 - 1, (NW, n), generator=gen, device=dev)
-        x[3] &= (1 << 58) - 1
-        x = x.contiguous()
-        rows["mod_pow_static"].append({"n": n, "field": "FP" if mp is FP else "FR",
-                                       "device_ms": turns(lambda: kernels.mod_pow_static(x, e, mp))})
-        emit({"phase": "ab", "name": "mod_pow_static", **rows["mod_pow_static"][-1], "gpu": gpu})
     profiles = {}
     for path, (make, run) in proofs.items():
         got = {"base": [], "this": []}
-        for who, fns in order:
+        for who in order:
             state = make()
-            prof = under(fns, lambda: profile_run(lambda: run(state), 1.0, gpu, path))
-            got[who].append({"device_busy_us": prof["device_busy_us"], "port_kernels": prof["port_kernels"]})
+            if who == "this":
+                prof = profile_run(lambda: run(state), 1.0, gpu, path)
+            else:
+                calls[0] = 0
+                saved, msm_mod._reduce_sum = msm_mod._reduce_sum, base
+                try:
+                    prof = profile_run(lambda: run(state), 1.0, gpu, path,
+                                       extra={"point_reduce_kernel": ("point_reduce.cu (base)", calls)})
+                finally:
+                    msm_mod._reduce_sum = saved
+            got[who].append({k: prof[k] for k in ("device_busy_us", "device_launches", "by_source",
+                                                   "counts_match")})
         profiles[path] = got
         emit({"phase": "ab_profile", "of": path, **got, "gpu": gpu})
-    return {"kernels": rows, "profiles": profiles}
+    return {"point_reduce": row, "profiles": profiles}
 
 
 # kernel -> its entry function in the ptxas report, for the redesigned kernels
@@ -1411,9 +1566,11 @@ def kernel_summary(checks: dict, paths: dict, ptxas: dict) -> list:
             "on_paths": sorted(p for p, ks in PATH_KERNELS.items() if name in ks),
         }
         for extra in ("ops", "at_paths", "op", "fill_share", "launch", "design", "serial", "sweep",
-                      "gcd_vs_ladder"):
+                      "gcd_vs_ladder", "plan", "launches_per_call", "dependency_bound_ms", "plans_check"):
             if extra in r:
                 row[extra] = r[extra]
+        if name == "point_reduce":   # the fold and every tree depth
+            row["ptxas"] = ptxas[name]
         if name in PTXAS_ENTRY:
             entry = next(v for k, v in ptxas[name].items() if PTXAS_ENTRY[name] in k)
             row["ptxas"] = entry
@@ -1430,8 +1587,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", metavar="DIR",
-                    help="also time a baseline tree's point_add, mod_pow_static and point_horner_multi, built "
-                         "from the csrc directory DIR, against this tree's (the ab lines)")
+                    help="also time the one-block point_reduce, built from the csrc directory DIR, against this "
+                         "tree's, alone and on its route in one prove and one r1cs_prove proof (the ab lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

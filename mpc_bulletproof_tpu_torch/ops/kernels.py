@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -65,7 +66,7 @@ KERNELS = {
     "point_scan_steps_inner": ("point_scan.cu", "bp_point_scan", [_P, _P, _I, _LL, _P]),
     "point_scan_steps": ("point_scan.cu", "bp_point_scan_steps", [_P, _P, _I, _LL, _P]),
     "point_horner_multi": ("point_horner.cu", "bp_point_horner", [_P, _P, _I, _I, _LL, _P]),
-    "point_reduce": ("point_reduce.cu", "bp_point_reduce", [_P, _P, _LL, _P]),
+    "point_reduce": ("point_reduce.cu", "bp_point_reduce", [_P, _P, _LL, _LL, _I, _I, _P]),
     "mod_pow_static": ("mod_pow.cu", "bp_mod_pow", [_P, _P, _LL, _U, _U, _U, _U, _I, _I, _P]),
     "vec2": ("vec2.cu", "bp_vec2", [_P, _P, _P, _LL, _LL, _I, _I, _P]),
     "probe_chain": ("probes.cu", "bp_probe_chain", [_P, _P, _P, _LL, _I, _I, _P]),
@@ -284,37 +285,120 @@ def point_horner_multi(window_sums: torch.Tensor, c: int) -> torch.Tensor:
 # point_reduce
 # ---------------------------------------------------------------------------
 
-REDUCE_THREADS = 256  # must match csrc/point_reduce.cu
+# The plan's rule (csrc/point_reduce.cu has the design).  Fold runs with the
+# one-thread add only while the folds keep REDUCE_FOLD_THREADS threads (two
+# warps a scheduler: the multiplier's issue, not the add's latency, bounds
+# them) and REDUCE_FOLD_MIN_WIDTH threads a segment (a warp's loads fill
+# 32-byte sectors); split the rest into tree passes of at most
+# REDUCE_TREE_LEVELS warp-split levels, as few passes as that allows, the
+# extra levels in the later passes.
+REDUCE_FOLD_THREADS = 32768
+REDUCE_FOLD_MIN_WIDTH = 4
+REDUCE_TREE_LEVELS = 6  # the kernel's limit (csrc/point_reduce.cu TREE_MAX_LEVELS)
 
 
-def point_reduce_plain(pts: torch.Tensor) -> torch.Tensor:
-    """Sum of ``(3, NW, n)`` points, added in the kernel's order: lane t of
-    REDUCE_THREADS folds points t, t + 256, ... from the identity, then a
-    halving tree folds the 256 partial sums.  The same order gives the same
-    projective words, not only the same group element."""
-    n = pts.shape[-1]
-    acc = identity((REDUCE_THREADS,), pts.device).contiguous()
-    for start in range(0, n, REDUCE_THREADS):
-        width = min(REDUCE_THREADS, n - start)
-        head = _point_add(acc[..., :width], pts[..., start : start + width])
-        acc = torch.cat([head, acc[..., width:]], dim=-1)
-    s = REDUCE_THREADS // 2
-    while s > 0:
-        acc = _point_add(acc[..., :s], acc[..., s : 2 * s])
-        s //= 2
+def point_reduce_plan(segments: int, n: int) -> list:
+    """The passes that sum ``segments`` segments of ``n >= 1`` points each:
+    ``("fold", run)`` then ``("tree", levels)`` entries, each one launch."""
+    plan, m, run = [], n, 1
+    while -(-m // (2 * run)) >= REDUCE_FOLD_MIN_WIDTH and segments * -(-m // (2 * run)) >= REDUCE_FOLD_THREADS:
+        run *= 2
+    if run > 1:
+        plan.append(("fold", run))
+        m = -(-m // run)
+    levels = (m - 1).bit_length()
+    passes = -(-levels // REDUCE_TREE_LEVELS)
+    for k in range(passes):
+        plan.append(("tree", levels // passes + (k >= passes - levels % passes)))
+    return plan
+
+
+def _pass_width(m: int, kind: str, param: int) -> int:
+    return -(-m // (param if kind == "fold" else 1 << param))
+
+
+def _fold_plain(x: torch.Tensor, run: int) -> torch.Tensor:
+    """``(3, NW, S, m) -> (3, NW, S, w)``, ``w = ceil(m / run)``: lane t adds
+    points t + w, t + 2w, ... to point t, in that order."""
+    m = x.shape[-1]
+    w = -(-m // run)
+    acc = x[..., :w]
+    for k in range(1, run):
+        count = min(w, m - k * w)
+        if count <= 0:
+            break
+        head = _point_add(acc[..., :count], x[..., k * w : k * w + count])
+        acc = torch.cat([head, acc[..., count:]], dim=-1)
     return acc
 
 
-def point_reduce(pts: torch.Tensor) -> torch.Tensor:
-    """Sum of a ``(3, NW, n)`` point batch over the batch axis -> ``(3, NW, 1)``."""
+def _tree_plain(x: torch.Tensor, levels: int) -> torch.Tensor:
+    """``(3, NW, S, m) -> (3, NW, S, ceil(m / 2^levels))``: sub-trees of
+    2^levels consecutive points (identity past m), neighbours added
+    pairwise level by level."""
+    S, m = x.shape[2:]
+    C = 1 << levels
+    w = -(-m // C)
+    if w * C != m:
+        x = torch.cat([x, identity((S, w * C - m), x.device)], dim=-1)
+    x = x.reshape(3, NW, S, w, C)
+    for _ in range(levels):
+        x = _point_add(x[..., 0::2], x[..., 1::2])
+    return x[..., 0]
+
+
+def _reduce_shape(pts: torch.Tensor) -> tuple:
+    """``(device type, batch, segments, n)`` of a ``(3, NW, *batch, n)`` operand."""
     dev = _check(pts, "point_reduce pts", lead=(3, NW))
-    if pts.dim() != 3:
-        raise ValueError("point_reduce: expected (3, NW, n)")
+    if pts.dim() < 3:
+        raise ValueError("point_reduce: expected (3, NW, *batch, n)")
+    batch = tuple(pts.shape[2:-1])
+    return dev, batch, math.prod(batch), pts.shape[-1]
+
+
+def point_reduce_plain(pts: torch.Tensor, plan: list | None = None) -> torch.Tensor:
+    """Segment sums of ``(3, NW, *batch, n)`` -> ``(3, NW, *batch, 1)``, pass
+    by pass in the kernel's order (``plan``, by default
+    :func:`point_reduce_plan`'s): the same order gives the same projective
+    words, not only the same group elements."""
+    _, batch, S, n = _reduce_shape(pts)
+    if S == 0 or n == 0:
+        return identity((*batch, 1), pts.device).contiguous()
+    x = pts.reshape(3, NW, S, n)
+    for kind, param in point_reduce_plan(S, n) if plan is None else plan:
+        x = _fold_plain(x, param) if kind == "fold" else _tree_plain(x, param)
+    return x.reshape(3, NW, *batch, 1).contiguous()
+
+
+def _point_reduce_launch(pts: torch.Tensor, plan: list) -> torch.Tensor:
+    """The passes of ``plan`` on a contiguous ``(3, NW, *batch, n)`` operand,
+    one launch each."""
+    _, batch, S, n = _reduce_shape(pts)
+    if S == 0 or n == 0:
+        return identity((*batch, 1), pts.device).contiguous()
+    m = n
+    for kind, param in plan:
+        m = _pass_width(m, kind, param)
+    if m != 1:
+        raise ValueError("point_reduce: the plan leaves more than one point a segment")
+    x = pts.reshape(3, NW, S, n)
+    for kind, param in plan:
+        m = x.shape[-1]
+        out = torch.empty((3, NW, S, _pass_width(m, kind, param)), dtype=torch.int64, device=pts.device)
+        _launch("point_reduce", x.data_ptr(), out.data_ptr(), S, m, int(kind == "fold"), param)
+        x = out
+    out = x.reshape(3, NW, *batch, 1)
+    return out if plan else out.clone()
+
+
+def point_reduce(pts: torch.Tensor) -> torch.Tensor:
+    """Segment sums: the last axis of a contiguous ``(3, NW, *batch, n)``
+    batch summed, ``(3, NW, *batch, 1)``; the ``prod(batch)`` segments are
+    independent.  No segment (``n = 0``) sums to the identity."""
+    dev, _, S, n = _reduce_shape(pts)
     if dev == "cpu":
         return point_reduce_plain(pts)
-    out = torch.empty((3, NW, 1), dtype=torch.int64, device=pts.device)
-    _launch("point_reduce", pts.data_ptr(), out.data_ptr(), pts.shape[-1])
-    return out
+    return _point_reduce_launch(pts, point_reduce_plan(S, n) if S and n else [])
 
 
 # ---------------------------------------------------------------------------

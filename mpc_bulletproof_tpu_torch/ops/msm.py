@@ -23,7 +23,7 @@ chains and the Pedersen bases.  So two precomputed tables serve them all.
   The windows combine by Horner (:func:`.kernels.point_horner_multi`).
 * **Fixed-base table** (V, T_1, T_2 and the blinding terms).  Rows
   ``d 2^(8 w) B`` for 32 windows of 8 bits: a commitment is 32 gathered
-  points per base and a halving tree.
+  points per base and one segmented sum (:func:`.kernels.point_reduce`).
 
 Tables are ``(3, NW, N)`` point tensors whose points are affine or the
 identity (``Z`` in ``{0, 1_M}``), gathered with ``index_select``.  Sorts
@@ -136,22 +136,12 @@ def _add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return kernels.point_add(a.contiguous(), b.contiguous())
 
 
-def _reduce_sum_tree(pts: torch.Tensor) -> torch.Tensor:
-    """Sum along the last axis by a halving tree -> keeps a unit last axis."""
-    w = pts.shape[-1]
-    while w > 1:
-        half = (w + 1) // 2
-        if 2 * half != w:
-            pad = identity((*pts.shape[2:-1], 2 * half - w), pts.device)
-            pts = torch.cat([pts, pad], dim=-1)
-        pts = _add(pts[..., :half], pts[..., half:])
-        w = half
-    return pts
-
-
 def _reduce_sum(pts: torch.Tensor) -> torch.Tensor:
-    """Sum of a ``(3, NW, n)`` batch -> ``(3, NW, 1)`` in one kernel."""
-    return kernels.point_reduce(pts.contiguous())
+    """Segment sums along the last axis of a contiguous ``(3, NW, *batch,
+    n)`` tensor -> keeps a unit last axis: one segmented kernel call
+    (:func:`.kernels.point_reduce`), for every point sum of the MSM layer
+    and the range prover."""
+    return kernels.point_reduce(pts)
 
 
 def _scan_lanes_hs(pts4: torch.Tensor) -> torch.Tensor:
@@ -192,7 +182,7 @@ def _bucket_sums_tail(cums: torch.Tensor, total: torch.Tensor, valid: torch.Tens
     ``sum_t (total - cum_t)`` with empty boundaries as the identity."""
     cums = _point_select(~valid, identity(cums.shape[2:], cums.device), cums)
     s_vals = _add(total[..., None].expand(cums.shape), _point_neg(cums))
-    return _reduce_sum_tree(s_vals)[..., 0].permute(2, 0, 1)
+    return _reduce_sum(s_vals)[..., 0].permute(2, 0, 1)
 
 
 def _windowed_bucket_sums_prelaid(x: torch.Tensor, pos: torch.Tensor, W: int, nt: int,
@@ -417,6 +407,5 @@ def fixed_commit(table: torch.Tensor, base_off_l: torch.Tensor, sc_l: torch.Tens
     w_off = torch.arange(FB_WINDOWS, dtype=torch.int64, device=sc_l.device)[:, None] * FB_TABLE
     idx_l = base_off_l[None, :] + w_off + _fb_digits(sc_l)
     idx_r = base_off_r[None, :] + w_off + _fb_digits(sc_r)
-    pts = _fetch(table, torch.cat([idx_l, idx_r]))   # (3, NW, 64, k)
-    pts = pts.permute(0, 1, 3, 2)                    # windows last
-    return _reduce_sum_tree(pts)[..., 0]
+    # the index array is transposed, not the points: (3, NW, k, 64), windows last
+    return _reduce_sum(_fetch(table, torch.cat([idx_l, idx_r]).T))[..., 0]

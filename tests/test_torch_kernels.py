@@ -38,7 +38,7 @@ from mpc_bulletproof_tpu.ops import field as jfield
 from mpc_bulletproof_tpu.ops import kernels as jkernels
 from mpc_bulletproof_tpu.ops import limb as jlimb
 from mpc_bulletproof_tpu_torch import convert
-from mpc_bulletproof_tpu_torch.ops import curve_t, kernels, probes
+from mpc_bulletproof_tpu_torch.ops import curve_t, kernels, msm, probes
 from mpc_bulletproof_tpu_torch.ops.curve import StarkPoint
 from mpc_bulletproof_tpu_torch.ops.limb import (FP, FR, NW, ints_to_words, mod_add, mod_mul, mod_sub,
                                                 words_to_ints)
@@ -211,19 +211,28 @@ def test_horner_plain_matches_host_horner(nw, c, k):
     assert _affine(got) == _affine(want)
 
 
-@pytest.mark.parametrize("n", [1, 2, 300])
-def test_reduce_matches_jax_reference_and_host(n):
-    pts = _jax_points(n, 3 + n)
-    want = jcurve.StarkPoint.identity()
-    for p in pts:
-        want = want + p
+@pytest.mark.parametrize("shape", [(1,), (2,), (300,), (3, 37), (2, 130), (4, 2)],
+                         ids=["1", "2", "300", "3x37", "2x130", "4x2"])
+def test_reduce_matches_jax_reference_and_host(shape):
+    """Each segment of a ``(3, NW, *batch, n)`` batch (one segment, or S
+    ragged ones that take one or two tree passes) against the host sum, and
+    at n = 2 also against the JAX package's plain reduction, run eagerly
+    (its op-by-op compile costs ~15 s for each other width)."""
+    *batch, n = shape
+    S = int(np.prod(batch, dtype=np.int64))
+    pts = _jax_points(S * n, 3 + S * n)
     jx = cj.points_from_host(pts)
-    tout = kernels.point_reduce(convert.points_from_jax(jx, device="cpu"))
-    assert tout.shape == (3, NW, 1)
-    assert _affine(curve_t.points_to_host(tout)) == _affine([want])
-    if n == 2:  # the JAX package's plain reduction, run eagerly
-        jref = np.asarray(cj._point_reduce_sum(jnp.asarray(jx)))[..., None]
-        assert _affine(cj.points_to_host(jref)) == _affine([want])
+    tout = kernels.point_reduce(convert.points_from_jax(jx, device="cpu").reshape(3, NW, *batch, n).contiguous())
+    assert tout.shape == (3, NW, *batch, 1)
+    got = curve_t.points_to_host(tout.reshape(3, NW, S))
+    for s in range(S):
+        want = jcurve.StarkPoint.identity()
+        for p in pts[s * n : (s + 1) * n]:
+            want = want + p
+        assert _affine([got[s]]) == _affine([want])
+        if n == 2:
+            jref = np.asarray(cj._point_reduce_sum(jnp.asarray(jx[..., s * n : (s + 1) * n])))[..., None]
+            assert _affine(cj.points_to_host(jref)) == _affine([want])
 
 
 @pytest.mark.parametrize("name", ["FP", "FR"])
@@ -346,6 +355,46 @@ def test_point_add_design_by_width(recorded_launches):
         ("point_add", 1, 1), ("point_add", 16, 1), ("point_add", top, 1), ("point_add", top + 1, 0)]
 
 
+@pytest.mark.parametrize("shape", [(8192,), (16, 256), (66, 64), (26, 512), (8, 32768), (64, 128)],
+                         ids=["prove_A", "prove_tail", "fixed_commit", "verify_tail", "msm_tail",
+                              "r1cs_prove_tail"])
+def test_reduce_sum_is_one_segmented_call(recorded_launches, shape):
+    """One ``msm._reduce_sum`` at a path's shape launches exactly the planned
+    passes of ``point_reduce``, each on the previous pass's width, and no
+    ``point_add`` (the halving tree of adds and copies is gone)."""
+    *batch, n = shape
+    S = int(np.prod(batch, dtype=np.int64))
+    out = msm._reduce_sum(torch.zeros((3, NW, *shape), dtype=torch.int64))
+    assert out.shape == (3, NW, *batch, 1)
+    plan = kernels.point_reduce_plan(S, n)
+    assert [name for name, _ in recorded_launches] == ["point_reduce"] * len(plan)
+    m = n
+    for (kind, param), (_, args) in zip(plan, recorded_launches):
+        assert args[2:] == (S, m, int(kind == "fold"), param)
+        m = -(-m // (param if kind == "fold" else 1 << param))
+    assert m == 1
+    assert plan[0][0] == ("fold" if S * n >= 1 << 17 else "tree")
+
+
+def test_reduce_plan_rule():
+    """Tree passes of at most REDUCE_TREE_LEVELS levels, as few as that
+    allows, the extra levels last; a fold first only where the folds keep
+    REDUCE_FOLD_THREADS threads and REDUCE_FOLD_MIN_WIDTH a segment."""
+    assert kernels.point_reduce_plan(1, 8192) == [("tree", 4), ("tree", 4), ("tree", 5)]
+    assert kernels.point_reduce_plan(16, 256) == [("tree", 4), ("tree", 4)]
+    assert kernels.point_reduce_plan(66, 64) == [("tree", 6)]
+    assert kernels.point_reduce_plan(8, 32768) == [("fold", 8), ("tree", 6), ("tree", 6)]
+    assert kernels.point_reduce_plan(131072, 64) == [("fold", 16), ("tree", 2)]
+    assert kernels.point_reduce_plan(5, 1) == []
+    for S, n in [(1, 2), (37, 2), (1, 64), (1, 65), (3, 1000), (1, 1 << 20), (2, 130)]:
+        plan = kernels.point_reduce_plan(S, n)
+        assert all(1 <= p <= kernels.REDUCE_TREE_LEVELS for kind, p in plan if kind == "tree")
+        m = n
+        for kind, param in plan:
+            m = -(-m // (param if kind == "fold" else 1 << param))
+        assert m == 1
+
+
 def test_wrappers_reject_bad_operands():
     pts = torch.zeros((3, NW, 4), dtype=torch.int64)
     with pytest.raises(ValueError):
@@ -354,6 +403,10 @@ def test_wrappers_reject_bad_operands():
         kernels.point_horner_multi(pts[None].contiguous(), 0)    # c out of range
     with pytest.raises(ValueError):
         kernels.point_reduce(pts[:, :2].contiguous())            # wrong word count
+    with pytest.raises(ValueError):
+        kernels.point_reduce(pts.reshape(3, NW, 2, 2).transpose(2, 3))   # not contiguous
+    with pytest.raises(ValueError):
+        kernels.point_reduce(pts[:, :, 0].contiguous())          # no point axis
     with pytest.raises(ValueError):
         kernels.mod_pow_static(pts[0], 3, object())               # FP or FR only
     with pytest.raises(ValueError):
@@ -556,8 +609,15 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
     elif name == "point_horner_multi":
         w = a.reshape(3, NW, 8, 5).permute(2, 0, 1, 3).contiguous()
         got, want = kernels.point_horner_multi(w, 9), kernels.point_horner_plain(w, 9)
-    elif name == "point_reduce":
-        got, want = kernels.point_reduce(a), kernels.point_reduce_plain(a)
+    elif name == "point_reduce":   # segments, ragged n, many blocks a segment, every tree depth, a fold
+        c = _random_points_t(300, 3, dev)
+        cases = [(a, None), (a.reshape(3, NW, 4, 10).contiguous(), None), (a[..., :37].contiguous(), None),
+                 (c, None), (c[..., :299].reshape(3, NW, 13, 23).contiguous(), None),
+                 (c, [("fold", 4)] + kernels.point_reduce_plan(1, 75)),
+                 *[(c, [("tree", lv)] * -(-9 // lv)) for lv in range(1, 7)]]   # 2^9 >= 300
+        got = torch.cat([(kernels.point_reduce(x) if p is None else kernels._point_reduce_launch(x, p))
+                         .reshape(3, NW, -1) for x, p in cases], dim=-1)
+        want = torch.cat([kernels.point_reduce_plain(x, p).reshape(3, NW, -1) for x, p in cases], dim=-1)
     elif name == "mod_pow_static":   # the GCD (e = m - 2) and the ladder, forced at m - 2 too
         x = a[0].contiguous()
         xr = (a[0] & ((1 << 59) - 1)).contiguous()               # < r
