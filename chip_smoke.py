@@ -18,8 +18,8 @@ Phases, one JSON object per line on standard output:
    2^17 x 64), at a ragged shape and at a one-level shape (S x 2), the
    ladder at the range
    and R1CS provers', ``point_scan_steps`` (which no
-   path runs) at the prove scan's and the vector ops (no path either) at
-   (4, 4,096); both scans also at ``PART_BLOCK_SCAN`` (a part-filled
+   path runs) at the prove scan's and the vector ops at (4, 4,096) (no
+   path) and at (4, 36,864), the mpc path's t-polynomial; both scans also at ``PART_BLOCK_SCAN`` (a part-filled
    last block of lanes); worst-case lanes (identity, doubling,
    P + (-P), coordinates near p, 0, 1, m - 1 and m - 2); equality is
    exact on the 64-bit words.
@@ -72,19 +72,37 @@ Phases, one JSON object per line on standard output:
    proof and one verification, one more proof split into its phase MSMs,
    its inner-product argument and the host rest, warm verifications split
    into the host terms and the MSM; a device profile of one proof.
-8. ``probes``: the three op-rate probes (``probe_chain``,
+8. ``mpc``: the collaborative (2-party MPC) R1CS range proof over
+   ``MPC_VALUES`` committed ``MPC_BITS``-bit values (n = 4,096
+   multipliers), both parties as threads over the in-process link on one
+   card (``MpcFabric(..., device="cuda")``): each party commits the values
+   it owns, its bits shared one value at a time and allocated as
+   multipliers (``pinned.mpc_range_party``).  The digest of the opened
+   proof, the commitments and the final transcript state must equal the
+   JAX package's (``pinned.MPC_RANGE_DIGESTS``); the port's ``Verifier``
+   must accept the proof on the card; party 0's share of the IPP's ``a``
+   plus one must make both parties' opening raise
+   ``AuthenticationError``.  Launches of one proof (both parties
+   together), the median of warm proofs (host clock), each party's host
+   split (commitments, the multipliers' Beaver rounds, phase MSMs, the
+   t-polynomial on the device share plane, the IPP, the opening), the
+   messages and bytes each party sent, a device profile (sums over both
+   parties' work).  ``mpc_small``: the JAX package's ``bench.py`` MPC
+   configuration (the example gadget, ``BulletproofGens(16, 1)``) at a
+   one-way link delay of 0 and 5 ms, median of warm proofs, verified.
+9. ``probes``: the three op-rate probes (``probe_chain``,
    ``probe_xor_chain``, ``probe_accum``), every op of their TPU benches at
    the TPU shapes: each held bit for bit to its plain version (NaN equal to
    NaN), then timed at the full repetition counts (ms, Gop/s, the bound,
    the share of the card's resident threads the shape fills).
-9. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
+10. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
    ``point_reduce`` this one replaced, built from DIR (an older tree's
    ``mpc_bulletproof_tpu_torch/csrc``), against this tree's at the A bit
    sum's shape: equal as points, device times in turns (base, this, this,
    base); then one warm prove and r1cs_prove proof each profiled in the
    same turns, the base on the former route (that kernel for the A sum, the
    halving tree of ``point_add`` launches for every other sum).
-10. the ``kernels`` summary with launches per path (for the scans and
+11. the ``kernels`` summary with launches per path (for the scans and
    Horner also their ptxas registers and spills, launch configurations
    and resident warps a scheduler), the card's ``nvidia-smi`` name and
    power limit, and last ``{"ok": true, "device": {...}}``.
@@ -114,6 +132,11 @@ WARM_VERIFIES = 3
 WARM_MSMS = 3
 MSM_LOG2N = 20
 VEC_N = 4096
+MPC_BITS, MPC_VALUES = 64, 64
+MPC_VEC_N = 9 * MPC_BITS * MPC_VALUES  # lanes of the t-polynomial's one Beaver round
+WARM_MPC = 3
+MPC_SMALL_LATENCIES = (0.0, 0.005)  # one-way link delay of the example-gadget runs, s
+WARM_MPC_SMALL = 3
 SHUFFLE_K = 1 << 10
 WARM_R1CS = 3
 SMS = 132
@@ -187,6 +210,7 @@ PATH_KERNELS = {
     "r1cs_prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
                    "mod_pow_static"},
     "r1cs_verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
+    "mpc": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2"},
     "probes": {"probe_chain", "probe_xor_chain", "probe_accum"},
 }
 
@@ -842,46 +866,55 @@ def reduce_plans_check(gpu: str, pool, gen) -> dict:
 
 
 def check_vec_ops(gpu: str, scalars) -> dict:
-    """vec_mul, vec_add and vec_sub against their plain versions: FR at
-    (NW, VEC_N), FR with a width-1 b, and FP; the FR full-width case is
-    timed.  Returns the vec_mul row with every op's row under ``ops``."""
+    """vec_mul, vec_add and vec_sub against their plain versions at two
+    widths: ``VEC_N`` (no path) and ``MPC_VEC_N`` (the mpc path's
+    t-polynomial Beaver products), each FR at (NW, n), FR with a width-1 b
+    (the MAC key and public scalars of the share plane), and FP; the FR
+    full-width case is timed.  Returns the vec_mul row at the mpc path's
+    width with every op's row under ``ops`` and both widths under
+    ``at_paths``."""
     import torch
 
     from mpc_bulletproof_tpu_torch.ops import kernels, limb
     from mpc_bulletproof_tpu_torch.ops.limb import FP, FR, NW
 
-    def pair(mp):
-        a, b = scalars(VEC_N, mp), scalars(VEC_N, mp)
+    def pair(n, mp):
+        a, b = scalars(n, mp), scalars(n, mp)
         b[:, :4] = b[:, :4].flip(-1).contiguous()         # edge lanes meet other edges
         return a, b
 
-    (a, b), (fa, fb) = pair(FR), pair(FP)
-    b1 = b[:, 2:3].contiguous()                              # r - 1, broadcast
-    rows = {}
-    for op, fn, plain, ops in (("mul", kernels.vec_mul, limb.mod_mul, FR_MUL_OPS),
-                               ("add", kernels.vec_add, limb.mod_add, VEC_ADD_OPS),
-                               ("sub", kernels.vec_sub, limb.mod_sub, VEC_ADD_OPS)):
-        errs, equal = [], True
-        for x, y, mp in ((a, b, FR), (a, b1, FR), (fa, fb, FP)):
-            got = fn(x, y, mp)
-            torch.cuda.synchronize()
-            want = plain(x, y, mp)
-            equal &= bool(torch.equal(got, want))
-            errs.append(max_abs_err(got, want, 0))
-        bound_ms, bound_by = bound(3 * NW * 8 * VEC_N, ops * VEC_N)
-        rows[op] = {"phase": "kernel", "name": f"vec_{op}",
-                    "shape": [{"n": VEC_N, "field": "FR"}, {"n": VEC_N, "b": 1, "field": "FR"},
-                              {"n": VEC_N, "field": "FP"}],
-                    "tolerance": 0, "equal": equal, "max_abs_err": max(errs),
-                    "kernel_ms": cuda_ms(lambda: fn(a, b, FR), 20),
-                    "device_ms": device_ms(lambda: fn(a, b, FR), 20),
-                    "plain_ms": timed_ms(lambda: plain(a, b, FR))[1],
-                    "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
-        emit(rows[op])
-    return {**rows["mul"], "equal": all(r["equal"] for r in rows.values()),
-            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            "ops": {f"vec_{op}": {k: r[k] for k in ("max_abs_err", "kernel_ms", "device_ms", "plain_ms",
-                                                   "bound_ms", "bound_by")} for op, r in rows.items()}}
+    at_paths, rows = {}, {}
+    for path, n in (("none", VEC_N), ("mpc", MPC_VEC_N)):
+        (a, b), (fa, fb) = pair(n, FR), pair(n, FP)
+        b1 = b[:, 2:3].contiguous()                          # r - 1, broadcast
+        rows = {}
+        for op, fn, plain, ops in (("mul", kernels.vec_mul, limb.mod_mul, FR_MUL_OPS),
+                                   ("add", kernels.vec_add, limb.mod_add, VEC_ADD_OPS),
+                                   ("sub", kernels.vec_sub, limb.mod_sub, VEC_ADD_OPS)):
+            errs, equal = [], True
+            for x, y, mp in ((a, b, FR), (a, b1, FR), (fa, fb, FP)):
+                got = fn(x, y, mp)
+                torch.cuda.synchronize()
+                want = plain(x, y, mp)
+                equal &= bool(torch.equal(got, want))
+                errs.append(max_abs_err(got, want, 0))
+            bound_ms, bound_by = bound(3 * NW * 8 * n, ops * n)
+            rows[op] = {"phase": "kernel", "name": f"vec_{op}", "path": path,
+                        "shape": [{"n": n, "field": "FR"}, {"n": n, "b": 1, "field": "FR"},
+                                  {"n": n, "field": "FP"}],
+                        "tolerance": 0, "equal": equal, "max_abs_err": max(errs),
+                        "kernel_ms": cuda_ms(lambda: fn(a, b, FR), 20),
+                        "device_ms": device_ms(lambda: fn(a, b, FR), 20),
+                        "plain_ms": timed_ms(lambda: plain(a, b, FR))[1],
+                        "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
+            emit(rows[op])
+        at_paths[path] = {f"vec_{op}": {k: r[k] for k in ("shape", "max_abs_err", "kernel_ms", "device_ms",
+                                                           "plain_ms", "bound_ms", "bound_by")}
+                          for op, r in rows.items()}
+        at_paths[path]["equal"] = all(r["equal"] for r in rows.values())
+    return {**rows["mul"], "equal": all(p["equal"] for p in at_paths.values()),
+            "max_abs_err": max(r["max_abs_err"] for p in at_paths.values() for k, r in p.items() if k != "equal"),
+            "ops": {k: v for k, v in at_paths["mpc"].items() if k != "equal"}, "at_paths": at_paths}
 
 
 def main_path(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES) -> dict:
@@ -1223,6 +1256,230 @@ def r1cs_phase(gpu: str, dev, k: int = SHUFFLE_K) -> dict:
     p = prover()
     emit(profile_run(lambda: prove(p), res["us_per_proof_median"], gpu, "r1cs_prove"))
     res["proof_run"] = (prover, prove)
+    return res
+
+
+def run_parties(party, latency_s: float = 0.0, timeout_s: float = 900.0) -> tuple[list, list]:
+    """``party(net)`` for both parties as threads over one in-process link
+    (``make_local_pair``); returns the two results and the two ends (their
+    message and byte counters).  A party's error is raised here; a party
+    left blocked by its peer's error ends at the link's receive timeout."""
+    import threading
+
+    from mpc_bulletproof_tpu_torch import make_local_pair
+
+    nets = make_local_pair(latency_s=latency_s)
+    results, errors = [None, None], [None, None]
+
+    def runner(i):
+        try:
+            results[i] = party(nets[i])
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors[i] = exc
+
+    threads = [threading.Thread(target=runner, args=(i,), name=f"party{i}") for i in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout_s)
+    if any(th.is_alive() for th in threads):
+        raise RuntimeError("a party did not finish")
+    for err in errors:
+        if err is not None:
+            raise err
+    return results, list(nets)
+
+
+def mpc_host_split(run) -> dict:
+    """One more two-party proof by ``run()``, each party's host-clock time
+    split into its sections: ``commitments`` (``batch_commit``: sharing,
+    the two-point commitment MSMs, their opening), ``beaver_rounds``
+    (``allocate_multiplier``: one Beaver round a multiplier), ``phase_msms``
+    (``shared_gens_msm``), ``t_poly`` (``special_inner_product``: one
+    Beaver round of 9n products on the device share plane), ``ipp``
+    (``SharedInnerProductProof.create``), ``opening`` (the final
+    MAC-checked opening) and the rest (constraints, l(x) and r(x), the T
+    commitments, evaluations); no synchronize inside (the other party's
+    work shares the card).  The wrappers are removed before returning."""
+    import threading
+
+    from mpc_bulletproof_tpu_torch.models.r1cs_mpc import (AuthenticatedVecPoly3, MpcProver,
+                                                           PartiallySharedR1CSProof,
+                                                           SharedInnerProductProof)
+    from mpc_bulletproof_tpu_torch.parallel.fabric import MpcFabric
+
+    sections = (("commitments", MpcProver, "batch_commit"),
+                ("beaver_rounds", MpcProver, "allocate_multiplier"),
+                ("phase_msms", MpcFabric, "shared_gens_msm"),
+                ("t_poly", AuthenticatedVecPoly3, "special_inner_product"),
+                ("ipp", SharedInnerProductProof, "create"),
+                ("opening", PartiallySharedR1CSProof, "open"))
+    spent = {f"party{i}": {name: 0.0 for name, _, _ in sections} for i in (0, 1)}
+
+    def timed(part, fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[threading.current_thread().name][part] += time.perf_counter() - t0
+        return wrapper
+
+    saved = [(cls, attr, cls.__dict__[attr]) for _, cls, attr in sections]
+    for (part, cls, attr), (_, _, orig) in zip(sections, saved):
+        if isinstance(orig, staticmethod):
+            setattr(cls, attr, staticmethod(timed(part, orig.__func__)))
+        else:
+            setattr(cls, attr, timed(part, orig))
+    try:
+        t0 = time.perf_counter()
+        totals = run()
+        wall = time.perf_counter() - t0
+    finally:
+        for cls, attr, orig in saved:
+            setattr(cls, attr, orig)
+    out = {"wall_s": wall}
+    for i, (name, parts) in enumerate(spent.items()):
+        out[name] = {"total": totals[i], **parts, "rest": totals[i] - sum(parts.values())}
+    return out
+
+
+def mpc_phase(gpu: str, dev, n_bits: int = MPC_BITS, m_values: int = MPC_VALUES) -> dict:
+    """The collaborative range proof over m committed n-bit values (n m
+    multipliers), both parties as threads on one card: digest against the
+    JAX package's host path, the port's verifier on the card, a tampered
+    opening rejected by both parties, launches of one proof (both parties),
+    warm medians, the host split, the link's rounds and bytes, a device
+    profile; then the JAX package's ``bench.py`` MPC configuration (the
+    example gadget) at each one-way latency of ``MPC_SMALL_LATENCIES``."""
+    import random
+
+    import torch
+
+    from mpc_bulletproof_tpu_torch import (AuthenticationError, BulletproofGens, HashChainTranscript,
+                                           LinearCombination, MpcFabric, MpcProver, PartyIdBeaverSource,
+                                           PedersenGens, Scalar, SharedInnerProductProof, Variable,
+                                           Verifier, pinned)
+    from mpc_bulletproof_tpu_torch.models.r1cs.gadgets import example_gadget, range_check_gadget
+    from mpc_bulletproof_tpu_torch.ops import kernels
+    from mpc_bulletproof_tpu_torch.parallel.fabric import AuthenticatedScalarVector
+
+    want = pinned.MPC_RANGE_DIGESTS[(n_bits, m_values)]
+    values, blindings = pinned.mpc_range_inputs(n_bits, m_values)
+    t0 = time.perf_counter()
+    bp_gens = BulletproofGens(n_bits * m_values, 1, device=dev)
+    pc_gens = PedersenGens()
+    torch.cuda.synchronize()
+    gens_s = time.perf_counter() - t0
+
+    def party(net, tamper=False):
+        t_start = time.perf_counter()
+        fabric = MpcFabric(net, PartyIdBeaverSource(net.party_id), device=dev)
+        tr = HashChainTranscript(pinned.MPC_LABEL)
+        prover = MpcProver(fabric, pc_gens, tr)
+        comms = pinned.mpc_range_party(prover, fabric, n_bits, values, blindings)
+        shared = prover.prove(bp_gens)
+        rejected = None
+        if tamper:      # party 0 adds one to its share of the IPP's a
+            ipp = shared.ipp_proof
+            a = ipp.a
+            if fabric.party_id == 0:
+                a = AuthenticatedScalarVector(fabric, [a.shares[0] + Scalar(1)], list(a.macs))
+            bad = dataclasses.replace(shared, ipp_proof=SharedInnerProductProof(
+                ipp.L_vec, ipp.R_vec, a, ipp.b, fabric))
+            try:
+                bad.open()
+            except AuthenticationError:
+                rejected = True
+            else:
+                raise RuntimeError(f"party {fabric.party_id} accepted a tampered opening")
+        proof = shared.open()
+        return proof, comms, tr.state, rejected, time.perf_counter() - t_start
+
+    def prove(tamper=False):
+        (r0, r1), nets = run_parties(lambda net: party(net, tamper))
+        proof, comms, state = r0[0], r0[1], r0[2]
+        if r1[0] != proof or r1[1] != comms or r1[2] != state:
+            raise RuntimeError("the parties opened different proofs")
+        digest = pinned.proof_digest(proof, comms, state)
+        if digest != want:
+            raise RuntimeError(f"MPC range proof digest {digest} != pinned {want}")
+        return (r0, r1), nets
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    (r0, r1), nets = prove(tamper=True)        # cold: uploads the generators
+    cold_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_launches("mpc")
+    if not (r0[3] and r1[3]):
+        raise RuntimeError("the tampered opening was not rejected by both parties")
+    proof, comms = r0[0], r0[1]
+
+    t0 = time.perf_counter()
+    verifier = Verifier(pc_gens, HashChainTranscript(pinned.MPC_LABEL))
+    for V in comms:
+        range_check_gadget(verifier, verifier.commit(V).to_lc(), None, n_bits)
+    verifier.verify(proof, bp_gens, device=dev)
+    verify_s = time.perf_counter() - t0
+
+    warm, link = [], None
+    for _ in range(WARM_MPC):
+        t0 = time.perf_counter()
+        _, nets = prove()
+        warm.append(time.perf_counter() - t0)
+        link = [{"messages": n.sent_messages, "bytes": n.sent_bytes} for n in nets]
+    split = mpc_host_split(lambda: [r[4] for r in prove()[0]])
+
+    res = {"phase": "mpc", "n_bits": n_bits, "values": m_values, "multipliers": n_bits * m_values,
+           "ipp_rounds": (n_bits * m_values - 1).bit_length(), "parties": 2, "link": "local threads",
+           "digest": want, "digest_equal": True, "verified_on_card": True,
+           "tampered_opening_rejected": {"party0": r0[3], "party1": r1[3]},
+           "proof_bytes": len(proof.to_bytes()), "gens_s": gens_s, "cold_prove_s": cold_s,
+           "verify_s": verify_s, "warm_prove_s": warm,
+           "us_per_proof_median": statistics.median(warm) * 1e6, "host_split_s": split,
+           "link_per_party": link, "launches": launches, "gpu": gpu}
+    emit(res)
+    emit(profile_run(lambda: prove(), res["us_per_proof_median"], gpu, "mpc"))
+
+    # the JAX package's bench.py MPC configuration (bench.py _mpc_prove_ms)
+    gens16 = BulletproofGens(16, 1, device=dev)
+    rng = random.Random(4242)
+    blind = [Scalar(rng.getrandbits(260)) for _ in range(5)]
+    c2 = LinearCombination({Variable.one(): Scalar(9)})
+
+    def example(net):
+        fabric = MpcFabric(net, PartyIdBeaverSource(net.party_id), device=dev)
+        prover = MpcProver(fabric, pc_gens, HashChainTranscript(b"bench-mpc"))
+        if fabric.party_id == 0:
+            c0, v0 = prover.batch_commit(0, [Scalar(3), Scalar(6), Scalar(40)], blind[:3])
+            c1, v1 = prover.batch_commit(1, None, None, count=2)
+        else:
+            c0, v0 = prover.batch_commit(0, None, None, count=3)
+            c1, v1 = prover.batch_commit(1, [Scalar(4), Scalar(1)], blind[3:])
+        example_gadget(prover, v0[0].to_lc(), v1[0].to_lc(), v0[1].to_lc(), v1[1].to_lc(), v0[2].to_lc(), c2)
+        return prover.prove(gens16).open(), c0 + c1
+
+    small = {}
+    for latency in MPC_SMALL_LATENCIES:
+        (e0, e1), _ = run_parties(example, latency)            # warm
+        if e0 != e1:
+            raise RuntimeError("example gadget: the parties opened different proofs")
+        times = []
+        for _ in range(WARM_MPC_SMALL):
+            t0 = time.perf_counter()
+            run_parties(example, latency)
+            times.append(time.perf_counter() - t0)
+        small[str(latency)] = {"prove_open_ms": [t * 1e3 for t in times],
+                               "ms_median": statistics.median(times) * 1e3}
+    ex_proof, ex_comms = e0
+    v = Verifier(pc_gens, HashChainTranscript(b"bench-mpc"))
+    vv = [v.commit(c) for c in ex_comms]
+    example_gadget(v, vv[0].to_lc(), vv[3].to_lc(), vv[1].to_lc(), vv[4].to_lc(), vv[2].to_lc(), c2)
+    v.verify(ex_proof, gens16, device=dev)
+    emit({"phase": "mpc_small", "config": "bench.py _mpc_prove_ms: example_gadget, BulletproofGens(16, 1)",
+          "one_way_latency_s": list(MPC_SMALL_LATENCIES), "verified_on_card": True, "runs": small, "gpu": gpu})
     return res
 
 
@@ -1615,13 +1872,14 @@ def main() -> int:
     vf = verify_phase(gpu, dev, mp)
     ms = msm_phase(gpu, dev)
     rc = r1cs_phase(gpu, dev)
+    mc = mpc_phase(gpu, dev)
     pr = probes_phase(gpu, dev)
     checks.update(pr["checks"])
     if args.ab:
         ab_phase(gpu, dev, args.ab, {"prove": mp["proof_run"], "r1cs_prove": rc["proof_run"]})
 
     paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"],
-             **rc["launches"], "probes": pr["launches"]}
+             **rc["launches"], "mpc": mc["launches"], "probes": pr["launches"]}
     summary = kernel_summary(checks, paths, entries)
     emit({"kernels": summary})
     print(smi_line(), flush=True)

@@ -140,6 +140,15 @@ def add_vec(a: Sequence[Scalar], b: Sequence[Scalar]) -> list[Scalar]:
     return [x + y for x, y in zip(a, b)]
 
 
+def scalar_powers(x: Scalar, n: int) -> list[Scalar]:
+    """``[1, x, ..., x^(n-1)]``."""
+    out, cur = [], 1
+    for _ in range(n):
+        out.append(Scalar(cur))
+        cur = cur * x.value % R
+    return out
+
+
 def sum_of_powers(x: Scalar, n: int) -> Scalar:
     """``1 + x + ... + x^(n-1)``; by the doubling recurrence when ``n`` is a
     power of two."""

@@ -20,9 +20,10 @@ Three more, ``probe_chain``, ``probe_xor_chain`` and ``probe_accum``
 probes of the JAX package's benches.
 
 The provers and the verifiers launch ``point_add``, ``point_scan_steps_inner``,
-``point_horner_multi``, ``point_reduce`` and ``mod_pow_static``;
-``point_scan_steps``, the vector ops and the probes serve callers of the
-library (the JAX package calls them only from its benches).
+``point_horner_multi``, ``point_reduce`` and ``mod_pow_static``; the
+collaborative prover's device share plane (:mod:`..parallel.device_shares`)
+launches the vector ops; ``point_scan_steps`` and the probes serve callers
+of the library (the JAX package calls them only from its benches).
 
 Every wrapper checks dtype, shape and contiguity the same way for every
 device.  For a tensor on the CPU it runs the plain PyTorch version beside
@@ -44,6 +45,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -75,15 +77,19 @@ KERNELS = {
 }
 
 # Launches per kernel since the last reset_launches(); only a launch of the
-# CUDA kernel counts, never a run of the plain version.
+# CUDA kernel counts, never a run of the plain version.  Threads may launch
+# at once (the two parties of the MPC prover): the counts, the build and
+# the library loads are taken under one lock.
 launches = {name: 0 for name in KERNELS}
 
 _FNS: dict = {}
+_LOCK = threading.RLock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _LOCK:
+        for name in launches:
+            launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -106,6 +112,11 @@ def build() -> dict:
     source (two kernels may share one), all started together.  Returns
     ``{name: (library path, ptxas report)}``; raises with the compiler's
     output if any build fails."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for source in sorted({source for source, _, _ in KERNELS.values()}):
@@ -136,14 +147,17 @@ def build() -> dict:
 def _fn(name: str):
     fn = _FNS.get(name)
     if fn is None:
-        source, symbol, argtypes = KERNELS[name]
-        lib = _lib_path(source)
-        if not lib.exists():
-            build()
-        fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
+        with _LOCK:
+            fn = _FNS.get(name)
+            if fn is None:
+                source, symbol, argtypes = KERNELS[name]
+                lib = _lib_path(source)
+                if not lib.exists():
+                    _build()
+                fn = getattr(ctypes.CDLL(str(lib)), symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _FNS[name] = fn
     return fn
 
 
@@ -152,7 +166,8 @@ def _launch(name: str, *args) -> None:
     rc = _fn(name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    launches[name] += 1
+    with _LOCK:
+        launches[name] += 1
 
 
 def _check(t: torch.Tensor, what: str, shape=None, lead=None) -> str:

@@ -13,7 +13,8 @@ The fused provers run the same chain on the card
 (:mod:`.ops.transcript_t`) and write the final state back here.  The R1CS
 prover draws its blindings from :meth:`HashChainTranscript.build_rng`, a
 counter-mode keccak RNG keyed by the transcript, the witness and fresh
-entropy.
+entropy.  :class:`MpcTranscript` wraps the transcript of a collaborative
+prover's party and absorbs opened (public) values only.
 """
 
 from __future__ import annotations
@@ -144,3 +145,43 @@ class TranscriptRng:
     def random_scalars(self, k: int) -> list[Scalar]:
         raw = self.randbytes(48 * k)
         return [Scalar(int.from_bytes(raw[48 * i : 48 * (i + 1)], "big")) for i in range(k)]
+
+
+class MpcTranscript:
+    """The transcript of the collaborative prover: both parties run the same
+    protocol in the same order and absorb the same opened values, so their
+    challenges agree.  The wrapper only checks that what it absorbs is
+    public (a ``Scalar`` or a ``StarkPoint``, never a share)."""
+
+    __slots__ = ("inner",)
+
+    def __init__(self, transcript: HashChainTranscript):
+        self.inner = transcript
+
+    def innerproduct_domain_sep(self, n: int) -> None:
+        self.inner.innerproduct_domain_sep(n)
+
+    def r1cs_domain_sep(self) -> None:
+        self.inner.r1cs_domain_sep()
+
+    def r1cs_1phase_domain_sep(self) -> None:
+        self.inner.r1cs_1phase_domain_sep()
+
+    def r1cs_2phase_domain_sep(self) -> None:
+        self.inner.r1cs_2phase_domain_sep()
+
+    def append_u64(self, label: bytes, value: int) -> None:
+        self.inner.append_u64(label, value)
+
+    def append_scalar(self, label: bytes, scalar: Scalar) -> None:
+        if not isinstance(scalar, Scalar):
+            raise TypeError("MpcTranscript absorbs opened (public) scalars only")
+        self.inner.append_scalar(label, scalar)
+
+    def append_point(self, label: bytes, point: StarkPoint) -> None:
+        if not isinstance(point, StarkPoint):
+            raise TypeError("MpcTranscript absorbs opened (public) points only")
+        self.inner.append_point(label, point)
+
+    def challenge_scalar(self, label: bytes) -> Scalar:
+        return self.inner.challenge_scalar(label)

@@ -1,5 +1,4 @@
-"""Error classes of the port (the subset of the JAX package's taxonomy that
-the range and R1CS provers, their verifiers and the proof codecs raise)."""
+"""Error classes of the port: the JAX package's taxonomy and hierarchy."""
 
 from __future__ import annotations
 
@@ -21,7 +20,27 @@ class FormatError(ProofError):
 
 
 class MPCError(BulletproofError):
-    """Errors of the party/dealer protocol (sizes, counts)."""
+    """Errors of the MPC substrate and the party/dealer protocol."""
+
+
+class AuthenticationError(MPCError):
+    """A MAC check failed when opening an authenticated value."""
+
+
+class NetworkError(MPCError):
+    """The two-party transport failed."""
+
+
+class SetupFailedError(MPCError):
+    """Fabric or network setup failed."""
+
+
+class MultiproverError(BulletproofError):
+    """Errors of the collaborative prover."""
+
+    def __init__(self, message: str = "", cause: Exception | None = None):
+        super().__init__(message or (str(cause) if cause else ""))
+        self.cause = cause
 
 
 class R1CSError(BulletproofError):

@@ -140,7 +140,11 @@ def test_port_never_imports_jax_or_the_jax_package():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for module in ("ops/probes.py", "ops/poly.py", "models/r1cs/prover.py", "models/r1cs/verifier.py",
                    "models/r1cs/proof.py", "models/r1cs/gadgets.py", "models/r1cs/constraint_system.py",
-                   "models/r1cs/linear_combination.py"):
+                   "models/r1cs/linear_combination.py", "parallel/network.py", "parallel/beaver.py",
+                   "parallel/fabric.py", "parallel/device_shares.py", "models/r1cs_mpc/__init__.py",
+                   "models/r1cs_mpc/authenticated_poly.py", "models/r1cs_mpc/mpc_constraint_system.py",
+                   "models/r1cs_mpc/mpc_inner_product.py", "models/r1cs_mpc/mpc_linear_combination.py",
+                   "models/r1cs_mpc/mpc_prover.py", "models/r1cs_mpc/proof.py"):
         assert f"mpc_bulletproof_tpu_torch/{module}" in names
     for f in files:
         for name in _imports(f):
