@@ -7,7 +7,7 @@
 Phases, one JSON object per line on standard output:
 
 1. ``env``: torch and CUDA versions, the ``nvcc`` path, the card.
-2. ``build``: all ten CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
+2. ``build``: all thirteen CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with each library's ptxas report.
 3. ``kernel``: each kernel against its plain PyTorch version on the card:
    ``point_add``, the inner scan and Horner at the shapes each of the
@@ -19,7 +19,14 @@ Phases, one JSON object per line on standard output:
    ladder at the range
    and R1CS provers', ``point_scan_steps`` (which no
    path runs) at the prove scan's and the vector ops at (4, 4,096) (no
-   path) and at (4, 36,864), the mpc path's t-polynomial; both scans also at ``PART_BLOCK_SCAN`` (a part-filled
+   path) and at (4, 36,864), the mpc path's t-polynomial (the product
+   with a width-1 b timed too: ``public_b``), the share plane's entries
+   at the mpc path's shapes (``beaver_diff`` at 2 x 36,864 lanes,
+   ``beaver_combine`` at 36,864 for both parties, ``poly3_eval`` at
+   4,096), and in turns (``share_plane_turns``: composed, fused, fused,
+   composed) the device time of a Beaver round's local algebra and of an
+   evaluation against the former composition of ``vec_mul/add/sub`` launches;
+   both scans also at ``PART_BLOCK_SCAN`` (a part-filled
    last block of lanes); worst-case lanes (identity, doubling,
    P + (-P), coordinates near p, 0, 1, m - 1 and m - 2); equality is
    exact on the 64-bit words.
@@ -83,7 +90,8 @@ Phases, one JSON object per line on standard output:
    must accept the proof on the card; party 0's share of the IPP's ``a``
    plus one must make both parties' opening raise
    ``AuthenticationError``.  Launches of one proof (both parties
-   together), the median of warm proofs (host clock), each party's host
+   together; ``vec2_family_launches``: those of ``csrc/vec2.cu``'s four
+   entries), the median of warm proofs (host clock), each party's host
    split (commitments, the multipliers' Beaver rounds, phase MSMs, the
    t-polynomial on the device share plane, the IPP, the opening), the
    messages and bytes each party sent, a device profile (sums over both
@@ -94,7 +102,10 @@ Phases, one JSON object per line on standard output:
    ``probe_xor_chain``, ``probe_accum``), every op of their TPU benches at
    the TPU shapes: each held bit for bit to its plain version (NaN equal to
    NaN), then timed at the full repetition counts (ms, Gop/s, the bound,
-   the share of the card's resident threads the shape fills).
+   the share of the card's resident threads the shape fills, and the
+   dependency bound: dependent instructions a step on one lane's chain x
+   ``DEP_LATENCY_CYCLES`` at the SM clock ``nvidia-smi`` reports while the
+   xor chain runs, ``clock_mhz_under_load``).
 10. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
    ``point_reduce`` this one replaced, built from DIR (an older tree's
    ``mpc_bulletproof_tpu_torch/csrc``), against this tree's at the A bit
@@ -186,6 +197,33 @@ VEC_ADD_OPS = 2 * 2 * 4 * 2
 GCD_STEP_OPS = 32
 
 
+# The probes' dependency bound: dependent instructions a chain step puts on
+# one lane's path through the accumulator (loop control and operands that
+# do not depend on it are off that path), each at DEP_LATENCY_CYCLES at the
+# SM clock nvidia-smi reports under load.  4 cycles is the dependent-issue
+# latency of the fixed-latency ALU instructions (IMAD, IADD3, LOP3, SHF,
+# FMUL, FADD) that microbenchmarks of Volta to Ampere report (Jia et al.,
+# "Dissecting the NVIDIA Volta GPU Architecture via Microbenchmarking",
+# 2018); NVIDIA publishes none for Hopper, so it is assumed, not measured.
+# Ops through the conversion pipe (I2F, F2I, FRND) have no fixed latency
+# and get no dependency bound (None).
+DEP_LATENCY_CYCLES = 4
+PROBE_DEP_STEPS = {
+    # acc = op(acc, y): a * y + y is one IMAD; the shift-mask's LOP3 and SHF
+    # run side by side before one IADD3; the float ops round twice, so a
+    # mul-add is FMUL then FADD
+    "probe_chain": {"i32_mul": 1, "i32_mul_add": 1, "i32_add": 1, "i32_shift_mask": 2,
+                    "f32_mul": 1, "f32_mul_add": 2, "f32_add": 1, "f32_carry": None},
+    # acc = op(acc, x) ^ i (float: + (i & 3)): the op, then the LOP3 (FADD)
+    "probe_xor_chain": {"baseline_xor": 1, "i32_mul": 2, "i32_add": 2, "i32_mul_mask": 2,
+                        "i32_shift": 3, "f32_mul": 2, "f32_add": 2, "f32_fma": 3, "i32_to_f32": None,
+                        "f32_floor": None},
+    # acc += op(a + i, b): the product does not depend on acc, so one add a step
+    "probe_accum": {op: 1 for op in ("i32_mul", "i32_add", "i32_shift_and", "f32_mul", "f32_fma",
+                                     "i32_mul16_masked", "i32_mul16_sext", "i32_mul16_one_side")},
+}
+
+
 def gcd_ops(fr: bool) -> int:
     return 17 * (31 * GCD_STEP_OPS + 40 + 2 * (4 * 8 * 2 + 2 * (8 if fr else 3)))
 
@@ -197,10 +235,15 @@ REPLACES = {
     "point_reduce": "mpc_bulletproof_tpu/ops/kernels.py:419",
     "mod_pow_static": "mpc_bulletproof_tpu/ops/kernels.py:497",
     "vec2": "mpc_bulletproof_tpu/ops/kernels.py:541",
+    "beaver_diff": "mpc_bulletproof_tpu/ops/kernels.py:541",
+    "beaver_combine": "mpc_bulletproof_tpu/ops/kernels.py:541",
+    "poly3_eval": "mpc_bulletproof_tpu/ops/kernels.py:541",
     "probe_chain": "benches/tpu_mul_bench.py:40",
     "probe_xor_chain": "benches/micro_vpu.py:46",
     "probe_accum": "benches/micro_mul.py:57",
 }
+# The entries of csrc/vec2.cu: the elementwise ops and the share plane's expressions.
+VEC2_FAMILY = ("vec2", "beaver_diff", "beaver_combine", "poly3_eval")
 # The kernels each path must launch.
 PATH_KERNELS = {
     "prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
@@ -210,7 +253,8 @@ PATH_KERNELS = {
     "r1cs_prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
                    "mod_pow_static"},
     "r1cs_verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
-    "mpc": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2"},
+    "mpc": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2",
+            "beaver_diff", "beaver_combine", "poly3_eval"},
     "probes": {"probe_chain", "probe_xor_chain", "probe_accum"},
 }
 
@@ -753,7 +797,7 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         rows.setdefault("mod_pow_static", {})[path] = res
     pow_ab = [mod_pow_ab(gpu, *case) for case in inverse_cases]
     sweep = point_add_sweep(gpu, pool, gen)
-    results = {"vec2": check_vec_ops(gpu, scalars)}
+    results = check_vec_ops(gpu, scalars)
     rows["point_add"]["prove"]["sweep"] = sweep
     rows["point_reduce"]["prove"]["plans_check"] = reduce_plans["max_abs_err"]
     rows["mod_pow_static"]["prove"]["gcd_vs_ladder"] = pow_ab
@@ -870,9 +914,11 @@ def check_vec_ops(gpu: str, scalars) -> dict:
     widths: ``VEC_N`` (no path) and ``MPC_VEC_N`` (the mpc path's
     t-polynomial Beaver products), each FR at (NW, n), FR with a width-1 b
     (the MAC key and public scalars of the share plane), and FP; the FR
-    full-width case is timed.  Returns the vec_mul row at the mpc path's
-    width with every op's row under ``ops`` and both widths under
-    ``at_paths``."""
+    full-width case and the width-1 product are timed.  Then the share
+    plane's entries at the mpc path's shapes (:func:`check_share_plane`).
+    Returns ``{"vec2": row, ...}``: the vec_mul row at the mpc path's width
+    with every op's row under ``ops`` and both widths under ``at_paths``,
+    and a row per share-plane entry."""
     import torch
 
     from mpc_bulletproof_tpu_torch.ops import kernels, limb
@@ -907,14 +953,161 @@ def check_vec_ops(gpu: str, scalars) -> dict:
                         "device_ms": device_ms(lambda: fn(a, b, FR), 20),
                         "plain_ms": timed_ms(lambda: plain(a, b, FR))[1],
                         "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
+            if op == "mul":     # one product a lane: b R made once a block
+                pb_ms, pb_by = bound(NW * 8 * (2 * n + 1), FR_MUL_OPS * (n + 1))
+                rows[op]["public_b"] = {"shape": {"n": n, "b": 1, "field": "FR"},
+                                        "kernel_ms": cuda_ms(lambda: fn(a, b1, FR), 20),
+                                        "device_ms": device_ms(lambda: fn(a, b1, FR), 20),
+                                        "plain_ms": timed_ms(lambda: plain(a, b1, FR))[1],
+                                        "bound_ms": pb_ms, "bound_by": pb_by}
             emit(rows[op])
         at_paths[path] = {f"vec_{op}": {k: r[k] for k in ("shape", "max_abs_err", "kernel_ms", "device_ms",
-                                                           "plain_ms", "bound_ms", "bound_by")}
+                                                           "plain_ms", "bound_ms", "bound_by", "public_b")
+                                        if k in r}
                           for op, r in rows.items()}
         at_paths[path]["equal"] = all(r["equal"] for r in rows.values())
-    return {**rows["mul"], "equal": all(p["equal"] for p in at_paths.values()),
-            "max_abs_err": max(r["max_abs_err"] for p in at_paths.values() for k, r in p.items() if k != "equal"),
-            "ops": {k: v for k, v in at_paths["mpc"].items() if k != "equal"}, "at_paths": at_paths}
+    vec = {**rows["mul"], "equal": all(p["equal"] for p in at_paths.values()),
+           "max_abs_err": max(r["max_abs_err"] for p in at_paths.values() for k, r in p.items() if k != "equal"),
+           "ops": {k: v for k, v in at_paths["mpc"].items() if k != "equal"}, "at_paths": at_paths}
+    return {"vec2": vec, **check_share_plane(gpu, scalars)}
+
+
+def composed_beaver_round(x, y, triple, theirs, alpha_w, party):
+    """A Beaver round's local algebra as the share plane ran it before, one
+    elementwise launch an operation (``vec_mul/add/sub``): 4 subs and two
+    concatenations, the opening's add, d and e copied out, 4 products and
+    4 adds for ``c + d b + e a``, ``d e``, its MAC term and 1 or 2 adds
+    (16 or 17 launches).  ``theirs`` stands for the peer's shares."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import kernels
+    from mpc_bulletproof_tpu_torch.ops.limb import FR
+
+    k = x.shape[-1]
+    (a, a_m), (b, b_m), (c, c_m) = triple
+    xs = torch.cat([kernels.vec_sub(x, a, FR), kernels.vec_sub(y, b, FR)], dim=-1)
+    torch.cat([kernels.vec_sub(x, a_m, FR), kernels.vec_sub(y, b_m, FR)], dim=-1)   # MACs of x - a, y - b
+    opened = kernels.vec_add(xs, theirs, FR)
+    d, e = opened[:, :k].contiguous(), opened[:, k:].contiguous()
+    s = kernels.vec_add(kernels.vec_add(c, kernels.vec_mul(b, d, FR), FR), kernels.vec_mul(a, e, FR), FR)
+    m = kernels.vec_add(kernels.vec_add(c_m, kernels.vec_mul(b_m, d, FR), FR), kernels.vec_mul(a_m, e, FR), FR)
+    d_e = kernels.vec_mul(d, e, FR)
+    if party == 0:
+        s = kernels.vec_add(s, d_e, FR)
+    return torch.stack([s, kernels.vec_add(m, kernels.vec_mul(d_e, alpha_w, FR), FR)])
+
+
+def fused_beaver_round(x, y, triple, theirs, alpha, party):
+    """The same round on this tree's share plane: three launches."""
+    from mpc_bulletproof_tpu_torch.ops import kernels
+    from mpc_bulletproof_tpu_torch.ops.limb import FR
+
+    opened = kernels.vec_add(kernels.beaver_diff(x, y, triple), theirs, FR)
+    return kernels.beaver_combine(opened, triple, alpha, party)
+
+
+def composed_poly3(coeffs, x_w):
+    """The former evaluation: Horner as 3 products by a width-1 x and 3 adds on
+    each row (12 launches)."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import kernels
+    from mpc_bulletproof_tpu_torch.ops.limb import FR
+
+    out = []
+    for row in range(2):
+        acc = coeffs[3, row]
+        for j in (2, 1, 0):
+            acc = kernels.vec_add(kernels.vec_mul(acc, x_w, FR), coeffs[j, row], FR)
+        out.append(acc)
+    return torch.stack(out)
+
+
+def check_share_plane(gpu: str, scalars) -> dict:
+    """The share plane's entries against their plain versions at the mpc
+    path's shapes: ``beaver_diff`` at k = ``MPC_VEC_N`` (2k lanes out),
+    ``beaver_combine`` at k = ``MPC_VEC_N`` for both parties and the MAC key
+    share at 0, r - 1 and random, ``poly3_eval`` at the evaluations' width
+    (``MPC_BITS * MPC_VALUES``) at x = 0, 1, r - 1 and random; edge lanes
+    (0, 1, r - 1, r - 2) in every operand.  Then in turns (composed, fused,
+    fused, composed) the device time of one Beaver round's local algebra
+    and of one evaluation, fused against the former composition of
+    ``vec_mul/add/sub`` calls (:func:`composed_beaver_round`,
+    :func:`composed_poly3`) at the same shapes, each held equal to the
+    other."""
+    import random
+
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import kernels, limb
+    from mpc_bulletproof_tpu_torch.ops.limb import FR, NW
+
+    r = FR.modulus
+    rng = random.Random(7)
+    k, ke = MPC_VEC_N, MPC_BITS * MPC_VALUES
+    stack = lambda count, width: torch.stack([scalars(width, FR) for _ in range(2 * count)]) \
+        .reshape(count, 2, NW, width).contiguous()
+    x, y = scalars(k, FR), scalars(k, FR).flip(-1).contiguous()
+    triple, de, coeffs = stack(3, k), scalars(2 * k, FR), stack(4, ke)
+    alphas = (0, r - 1, rng.randrange(r))
+    xs = (0, 1, r - 1, rng.randrange(r))
+    cases = {
+        "beaver_diff": ([(x, y, triple)], kernels.beaver_diff, kernels.beaver_diff_plain,
+                        [{"k": k, "lanes_out": 2 * k}],
+                        bound(6 * k * NW * 8, 2 * k * VEC_ADD_OPS)),
+        "beaver_combine": ([(de, triple, al, p) for p in (0, 1) for al in alphas[::-1]], kernels.beaver_combine,
+                           kernels.beaver_combine_plain,
+                           [{"k": k, "party": p, "alpha": a} for p in (0, 1) for a in ("random", "r-1", "0")],
+                           bound(10 * k * NW * 8, k * (8 * FR_MUL_OPS + 7 * VEC_ADD_OPS))),
+        "poly3_eval": ([(coeffs, xv) for xv in xs], kernels.poly3_eval, kernels.poly3_eval_plain,
+                       [{"k": ke, "x": v} for v in ("0", "1", "r-1", "random")],
+                       bound(10 * ke * NW * 8, 2 * ke * 3 * (FR_MUL_OPS + VEC_ADD_OPS))),
+    }
+    out = {}
+    for name, (argsets, fn, plain, shape, (bound_ms, bound_by)) in cases.items():
+        errs, equal = [], True
+        for args in argsets:
+            got = fn(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            equal &= bool(torch.equal(got, want))
+            errs.append(max_abs_err(got, want, got.dim() - 2))
+        args = argsets[-1] if name == "poly3_eval" else argsets[0]   # timed: party 0, random x
+        row = {"phase": "kernel", "name": name, "path": "mpc", "shape": shape, "tolerance": 0,
+               "equal": equal, "max_abs_err": max(errs),
+               "kernel_ms": cuda_ms(lambda: fn(*args), 20), "device_ms": device_ms(lambda: fn(*args), 20),
+               "plain_ms": timed_ms(lambda: plain(*args))[1], "bound_ms": bound_ms, "bound_by": bound_by,
+               "gpu": gpu}
+        emit(row)
+        out[name] = row
+
+    # fused against composed, in turns
+    theirs = scalars(2 * k, FR)
+    alpha = alphas[-1]
+    alpha_w = torch.as_tensor(limb.ints_to_words([alpha]), device=x.device)
+    x_w = torch.as_tensor(limb.ints_to_words([xs[-1]]), device=x.device)
+    pairs = {"beaver_round": (lambda: composed_beaver_round(x, y, triple, theirs, alpha_w, 0),
+                              lambda: fused_beaver_round(x, y, triple, theirs, alpha, 0)),
+             "evaluation": (lambda: composed_poly3(coeffs, x_w), lambda: kernels.poly3_eval(coeffs, xs[-1]))}
+    turns = {}
+    for what, (composed, fused) in pairs.items():
+        if not torch.equal(composed(), fused()):
+            raise RuntimeError(f"share plane: the fused {what} disagrees with the composed one")
+        t = {"composed": [], "fused": []}
+        launches = {}
+        for who in ("composed", "fused", "fused", "composed"):
+            fn = composed if who == "composed" else fused
+            kernels.reset_launches()
+            fn()
+            torch.cuda.synchronize()
+            launches[who] = sum(kernels.launches.values())
+            t[who].append(device_ms(fn, 20, per_call=True) * 1e3)
+        turns[what] = {"shape": {"k": k if what == "beaver_round" else ke}, "device_us": t,
+                       "launches": launches}
+    kernels.reset_launches()
+    emit({"phase": "share_plane_turns", **turns, "gpu": gpu})
+    out["beaver_combine"]["vs_composed"] = turns
+    return out
 
 
 def main_path(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES) -> dict:
@@ -1439,7 +1632,8 @@ def mpc_phase(gpu: str, dev, n_bits: int = MPC_BITS, m_values: int = MPC_VALUES)
            "proof_bytes": len(proof.to_bytes()), "gens_s": gens_s, "cold_prove_s": cold_s,
            "verify_s": verify_s, "warm_prove_s": warm,
            "us_per_proof_median": statistics.median(warm) * 1e6, "host_split_s": split,
-           "link_per_party": link, "launches": launches, "gpu": gpu}
+           "link_per_party": link, "launches": launches,
+           "vec2_family_launches": sum(launches[k] for k in VEC2_FAMILY), "gpu": gpu}
     emit(res)
     emit(profile_run(lambda: prove(), res["us_per_proof_median"], gpu, "mpc"))
 
@@ -1541,6 +1735,24 @@ def probe_inputs(dev) -> dict:
             "accum": {torch.int32: ai, torch.float32: [a.float() for a in ai]}}
 
 
+def clock_under_load(fn, launches: int = 300, samples: int = 3) -> float:
+    """The median SM clock (MHz) ``nvidia-smi`` reports while ``launches``
+    runs of ``fn`` (one launch each, ~2 ms for the full xor chain) are
+    queued on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    for _ in range(launches):
+        fn()
+    got = []
+    for _ in range(samples):
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60, check=True)
+        got.append(float(out.stdout.strip().splitlines()[0]))
+    torch.cuda.synchronize()
+    return statistics.median(got)
+
+
 def probes_phase(gpu: str, dev) -> dict:
     """Every op of the three probes at its TPU shape: held to its plain
     version bit for bit (NaN equal to NaN) at ``check_reps``, then launched
@@ -1594,6 +1806,8 @@ def probes_phase(gpu: str, dev) -> dict:
             for name, (key, ops, _, fn, _, full, _) in specs.items() for i, op in enumerate(ops)]
     recorded: dict = {}
     dev_ms = device_ms_by_name(runs, 20, recorded)
+    xor_a = args("xor", "i32_mul")
+    clock_mhz = clock_under_load(lambda: probes.probe_xor_chain("i32_mul", *xor_a, xor_hi))
     summary = {}
     for name, (key, ops, per_step, fn, plain, full, _) in specs.items():
         for i, op in enumerate(ops):
@@ -1607,6 +1821,10 @@ def probes_phase(gpu: str, dev) -> dict:
             r["bound_ms"], r["bound_by"] = bound(lanes * 4 * (len(a) + 1), ops_count)
             r["gops_per_s"] = ops_count / r["ms"] / 1e6
             r["fill_share"] = min(1.0, lanes / RESIDENT_THREADS)
+            dep = PROBE_DEP_STEPS[name][op]
+            r["dependency_bound_ms"] = None if dep is None else \
+                full * dep * DEP_LATENCY_CYCLES / (clock_mhz * 1e3)
+            r["clock_mhz_under_load"] = clock_mhz
             if name == "probe_xor_chain":
                 lo_ms = cuda_ms(lambda: fn(op, *a, xor_lo), 20)
                 r["ms_at_%d" % xor_lo] = lo_ms
@@ -1623,6 +1841,7 @@ def probes_phase(gpu: str, dev) -> dict:
         m = rows[name]["i32_mul"]
         summary[name] = {"kernel_ms": m["ms"], "device_ms": m["device_ms"], "plain_ms": plain_full_ms,
                          "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "op": "i32_mul",
+                         "dependency_bound_ms": m["dependency_bound_ms"], "clock_mhz_under_load": clock_mhz,
                          "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
                          "equal": True, "fill_share": m["fill_share"], "ops": rows[name]}
     return {"launches": launches, "checks": summary}
@@ -1823,7 +2042,8 @@ def kernel_summary(checks: dict, paths: dict, ptxas: dict) -> list:
             "on_paths": sorted(p for p, ks in PATH_KERNELS.items() if name in ks),
         }
         for extra in ("ops", "at_paths", "op", "fill_share", "launch", "design", "serial", "sweep",
-                      "gcd_vs_ladder", "plan", "launches_per_call", "dependency_bound_ms", "plans_check"):
+                      "gcd_vs_ladder", "plan", "launches_per_call", "dependency_bound_ms", "plans_check",
+                      "public_b", "vs_composed", "clock_mhz_under_load"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "point_reduce":   # the fold and every tree depth

@@ -6,8 +6,9 @@ whole t-polynomial costs one round trip.  From :data:`DEVICE_MIN_WIDTH`
 lanes on it and :meth:`AuthenticatedVecPoly3.eval` run on the device
 share plane (:class:`...parallel.device_shares.DeviceShareVector`) on the
 fabric's device, the JAX package's routing by size: on a CUDA device
-every elementwise operation is a ``vec2`` kernel launch, on the CPU its
-plain version.  Below it they run on the host shares.
+the t-polynomial's Beaver round is three launches of ``csrc/vec2.cu`` and
+an evaluation one, on the CPU their plain versions.  Below it they run
+on the host shares.
 """
 
 from __future__ import annotations
@@ -73,11 +74,7 @@ class AuthenticatedVecPoly3:
         if len(self.c1) >= DEVICE_MIN_WIDTH:
             from ...parallel.device_shares import DeviceShareVector
 
-            c0, c1, c2, c3 = (DeviceShareVector.from_host(c)
-                              for c in (self.c0, self.c1, self.c2, self.c3))
-            out = c3.mul_public(x) + c2
-            out = out.mul_public(x) + c1
-            return (out.mul_public(x) + c0).to_host()
+            return DeviceShareVector.poly3([self.c0, self.c1, self.c2, self.c3], x).to_host()
         out = self.c3.mul_public(x) + self.c2
         out = out.mul_public(x) + self.c1
         return out.mul_public(x) + self.c0

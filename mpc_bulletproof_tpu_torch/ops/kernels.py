@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels, their wrappers and their plain versions.
 
-Ten kernels.  Seven carry the point, inverse and vector field work, each
+Thirteen kernels.  Ten carry the point, inverse and field work, each
 replacing one Pallas kernel of ``mpc_bulletproof_tpu/ops/kernels.py``:
 
 ==============================  =======================  =======================
@@ -13,17 +13,23 @@ wrapper                         CUDA source (``csrc/``)  replaces
 ``point_reduce``                ``point_reduce.cu``      ``point_reduce``
 ``mod_pow_static``              ``mod_pow.cu``           ``mod_pow_static``
 ``vec_mul/vec_add/vec_sub``     ``vec2.cu``              ``_vec2``
+``beaver_diff``                 ``vec2.cu``              ``_vec2`` (4 subs)
+``beaver_combine``              ``vec2.cu``              ``_vec2`` (12 or 13 ops)
+``poly3_eval``                  ``vec2.cu``              ``_vec2`` (12 ops)
 ==============================  =======================  =======================
 
-Three more, ``probe_chain``, ``probe_xor_chain`` and ``probe_accum``
+The last three compute the device share plane's fixed expressions, which
+the JAX package composes from ``_vec2``'s ops, in one launch each.  Three
+more, ``probe_chain``, ``probe_xor_chain`` and ``probe_accum``
 (``probes.cu``, wrappers in :mod:`.probes`), replace the Pallas op-rate
 probes of the JAX package's benches.
 
 The provers and the verifiers launch ``point_add``, ``point_scan_steps_inner``,
 ``point_horner_multi``, ``point_reduce`` and ``mod_pow_static``; the
 collaborative prover's device share plane (:mod:`..parallel.device_shares`)
-launches the vector ops; ``point_scan_steps`` and the probes serve callers
-of the library (the JAX package calls them only from its benches).
+launches the vector ops and the three share-plane entries;
+``point_scan_steps`` and the probes serve callers of the library (the JAX
+package calls them only from its benches).
 
 Every wrapper checks dtype, shape and contiguity the same way for every
 device.  For a tensor on the CPU it runs the plain PyTorch version beside
@@ -71,6 +77,9 @@ KERNELS = {
     "point_reduce": ("point_reduce.cu", "bp_point_reduce", [_P, _P, _LL, _LL, _I, _I, _P]),
     "mod_pow_static": ("mod_pow.cu", "bp_mod_pow", [_P, _P, _LL, _U, _U, _U, _U, _I, _I, _P]),
     "vec2": ("vec2.cu", "bp_vec2", [_P, _P, _P, _LL, _LL, _I, _I, _P]),
+    "beaver_diff": ("vec2.cu", "bp_beaver_diff", [_P, _P, _P, _P, _LL, _P]),
+    "beaver_combine": ("vec2.cu", "bp_beaver_combine", [_P, _LL, _P, _P, _LL, _I, _U, _U, _U, _U, _P]),
+    "poly3_eval": ("vec2.cu", "bp_poly3_eval", [_P, _P, _LL, _U, _U, _U, _U, _P]),
     "probe_chain": ("probes.cu", "bp_probe_chain", [_P, _P, _P, _LL, _I, _I, _P]),
     "probe_xor_chain": ("probes.cu", "bp_probe_xor_chain", [_P, _P, _LL, _I, _I, _P]),
     "probe_accum": ("probes.cu", "bp_probe_accum", [_P, _P, _P, _LL, _I, _I, _P]),
@@ -550,3 +559,106 @@ def vec_add(a: torch.Tensor, b: torch.Tensor, mp: ModParams = FR) -> torch.Tenso
 def vec_sub(a: torch.Tensor, b: torch.Tensor, mp: ModParams = FR) -> torch.Tensor:
     """``(a - b) mod m`` lane by lane."""
     return _vec2("sub", a, b, mp)
+
+
+# ---------------------------------------------------------------------------
+# the device share plane's expressions: beaver_diff, beaver_combine, poly3_eval
+# ---------------------------------------------------------------------------
+#
+# FR only, canonical standard-form words in and out.  A share pair is the
+# (2, NW, k) stack of a share vector's values and MACs; the triple is the
+# (3, 2, NW, k) stack of the pairs of a, b and c, the coefficients the
+# (4, 2, NW, k) stack of the pairs of c0..c3.  Public scalars are Python
+# ints in [0, r); the kernels take them in Montgomery form by value.
+
+def _mont_words(x: int, what: str) -> list:
+    """``x R mod r`` as four 64-bit words, for a public ``0 <= x < r``."""
+    x = int(x)
+    if not 0 <= x < FR.modulus:
+        raise ValueError(f"{what}: a public scalar must lie in [0, r)")
+    v = x * FR.mont_r % FR.modulus
+    return [(v >> (64 * j)) & ((1 << 64) - 1) for j in range(NW)]
+
+
+def _check_pairs(t: torch.Tensor, what: str, count: int) -> tuple:
+    """``(device type, k)`` of a ``(count, 2, NW, k)`` stack of share pairs."""
+    dev = _check(t, what, lead=(count, 2, NW))
+    if t.dim() != 4:
+        raise ValueError(f"{what}: expected ({count}, 2, NW, k)")
+    return dev, t.shape[-1]
+
+
+def _same_device(name: str, first: torch.Tensor, *others: torch.Tensor) -> None:
+    if any(t.device != first.device for t in others):
+        raise ValueError(f"{name}: operands on different devices")
+
+
+def beaver_diff_plain(x: torch.Tensor, y: torch.Tensor, triple: torch.Tensor) -> torch.Tensor:
+    return torch.cat([mod_sub(x, triple[0, 0], FR), mod_sub(y, triple[1, 0], FR)], dim=-1)
+
+
+def beaver_diff(x: torch.Tensor, y: torch.Tensor, triple: torch.Tensor) -> torch.Tensor:
+    """``[x - a | y - b]``, ``(NW, 2k)``: the shares a Beaver round opens,
+    for ``(NW, k)`` shares x and y and the triple's shares a and b."""
+    dev, k = _check_pairs(triple, "beaver_diff triple", 3)
+    _check(x, "beaver_diff x", shape=(NW, k))
+    _check(y, "beaver_diff y", shape=(NW, k))
+    _same_device("beaver_diff", triple, x, y)
+    if dev == "cpu":
+        return beaver_diff_plain(x, y, triple)
+    out = torch.empty((NW, 2 * k), dtype=torch.int64, device=x.device)
+    _launch("beaver_diff", x.data_ptr(), y.data_ptr(), triple.data_ptr(), out.data_ptr(), k)
+    return out
+
+
+def beaver_combine_plain(de: torch.Tensor, triple: torch.Tensor, alpha: int, party: int) -> torch.Tensor:
+    k = triple.shape[-1]
+    d, e = de[:, :k], de[:, k:]
+    (a, a_mac), (b, b_mac), (c, c_mac) = triple
+    d_e = mod_mul(d, e, FR)
+    shares = mod_add(mod_add(c, mod_mul(b, d, FR), FR), mod_mul(a, e, FR), FR)
+    if party == 0:
+        shares = mod_add(shares, d_e, FR)
+    alpha_w = torch.as_tensor(ints_to_words([alpha]), device=de.device)
+    macs = mod_add(mod_add(c_mac, mod_mul(b_mac, d, FR), FR), mod_mul(a_mac, e, FR), FR)
+    return torch.stack([shares, mod_add(macs, mod_mul(d_e, alpha_w, FR), FR)])
+
+
+def beaver_combine(de: torch.Tensor, triple: torch.Tensor, alpha: int, party: int) -> torch.Tensor:
+    """One party's share pair of ``x y`` from a Beaver round: ``z = c + d b
+    + e a`` (``+ d e`` on party 0), its MAC ``c_m + d b_m + e a_m + alpha d
+    e``, for the opened ``de = [d | e]`` (``(NW, 2k)``, read in place), the
+    triple's pairs and the party's MAC key share ``alpha``."""
+    dev, k = _check_pairs(triple, "beaver_combine triple", 3)
+    _check(de, "beaver_combine de", shape=(NW, 2 * k))
+    _same_device("beaver_combine", triple, de)
+    if party not in (0, 1):
+        raise ValueError("beaver_combine: party is 0 or 1")
+    words = _mont_words(alpha, "beaver_combine alpha")
+    if dev == "cpu":
+        return beaver_combine_plain(de, triple, int(alpha), party)
+    out = torch.empty((2, NW, k), dtype=torch.int64, device=de.device)
+    _launch("beaver_combine", de.data_ptr(), de.shape[-1], triple.data_ptr(), out.data_ptr(), k, party,
+            *words)
+    return out
+
+
+def poly3_eval_plain(coeffs: torch.Tensor, x: int) -> torch.Tensor:
+    c = coeffs.movedim(2, 0)                                   # (NW, 4, 2, k)
+    xw = torch.as_tensor(ints_to_words([x]), device=coeffs.device).reshape(NW, 1, 1)
+    acc = c[:, 3]
+    for j in (2, 1, 0):
+        acc = mod_add(mod_mul(acc, xw, FR), c[:, j], FR)
+    return acc.movedim(0, 1).contiguous()
+
+
+def poly3_eval(coeffs: torch.Tensor, x: int) -> torch.Tensor:
+    """``c0 + c1 x + c2 x^2 + c3 x^3`` at a public ``x`` on both rows (values
+    and MACs) of the coefficients' share pairs, ``(2, NW, k)``."""
+    dev, k = _check_pairs(coeffs, "poly3_eval coeffs", 4)
+    words = _mont_words(x, "poly3_eval x")
+    if dev == "cpu":
+        return poly3_eval_plain(coeffs, int(x))
+    out = torch.empty((2, NW, k), dtype=torch.int64, device=coeffs.device)
+    _launch("poly3_eval", coeffs.data_ptr(), out.data_ptr(), k, *words)
+    return out

@@ -206,6 +206,7 @@ class MpcFabric:
         self.party_id = network.party_id
         self.mac_key_share = beaver_source.mac_key_share()
         self.device = resolve_device(device)
+        self.mac_key_words = None  # its (NW, 1) words on the device (device_shares), made at first use
 
     def _vector(self, pairs) -> AuthenticatedScalarVector:
         return AuthenticatedScalarVector(self, [s for s, _ in pairs], [m for _, m in pairs])

@@ -4,7 +4,9 @@ On the CPU each wrapper runs its plain PyTorch version; those are held
 against the JAX package's Pallas kernels in interpret mode
 (point_scan_steps_inner, point_scan_steps, point_horner_multi, vec_mul,
 vec_add, vec_sub), against its plain references
-(curve_jax._point_reduce_sum) and against exact host arithmetic.  Group
+(curve_jax._point_reduce_sum), the share plane's entries (beaver_diff,
+beaver_combine, poly3_eval) against compositions of its limb ops, and
+against exact host arithmetic.  Group
 elements are compared in affine form, field elements as integers.  The
 scans and Horner's start from the top window are also held to golden
 host arithmetic.  The kernels themselves run only on the card: the tests
@@ -134,6 +136,146 @@ def test_vec_ops_match_jax_pallas(op, field, width):
     host = {"mul": lambda x, y: x * y % m, "add": lambda x, y: (x + y) % m,
             "sub": lambda x, y: (x - y) % m}[op]
     assert got == want == [host(x, y) for x, y in zip(a_int, bb)]
+
+
+# ---------------------------------------------------------------------------
+# the device share plane's entries (beaver_diff, beaver_combine, poly3_eval)
+# ---------------------------------------------------------------------------
+
+def _fr_ints(rng, k, edge=(0, 1, FR.modulus - 1)):
+    """k ints in [0, r) from numpy's generator, the edge values first."""
+    vals = [int.from_bytes(rng.bytes(32), "little") % FR.modulus for _ in range(k)]
+    vals[: len(edge)] = edge
+    return vals
+
+
+def _pairs(rng, count, k):
+    """``count`` share pairs as ints ``[[shares, macs], ...]`` (edges rotated
+    so edge lanes meet other edges)."""
+    return [[_fr_ints(rng, k, edge=(0, 1, FR.modulus - 1)[(2 * i + j) % 3:] + (0, 1, FR.modulus - 1)[:(2 * i + j) % 3])
+             for j in range(2)] for i in range(count)]
+
+
+def _stack_t(pairs):
+    return torch.stack([torch.stack([torch.as_tensor(ints_to_words(v)) for v in pair]) for pair in pairs]).contiguous()
+
+
+def _jl(vals):
+    return jnp.asarray(jlimb.ints_to_limbs(vals))
+
+
+def _jints(arr):
+    return jlimb.limbs_to_ints(np.asarray(arr))
+
+
+@pytest.mark.parametrize("k", [16, 48])
+def test_beaver_diff_matches_jax_limb_ops(k):
+    """``[x - a | y - b]`` equals the JAX package's ``limb.mod_sub`` of each
+    half, exactly."""
+    rng = np.random.default_rng(k)
+    x, y = _fr_ints(rng, k), _fr_ints(rng, k)[::-1]
+    triple = _pairs(rng, 3, k)
+    got = kernels.beaver_diff(torch.as_tensor(ints_to_words(x)), torch.as_tensor(ints_to_words(y)),
+                              _stack_t(triple))
+    assert got.shape == (NW, 2 * k)
+    want = (_jints(jlimb.mod_sub(_jl(x), _jl(triple[0][0]), jlimb.FR))
+            + _jints(jlimb.mod_sub(_jl(y), _jl(triple[1][0]), jlimb.FR)))
+    m = FR.modulus
+    assert words_to_ints(got) == want == [(u - v) % m for u, v in zip(x + y, triple[0][0] + triple[1][0])]
+
+
+@pytest.mark.parametrize("party", [0, 1])
+@pytest.mark.parametrize("k", [16, 48])
+def test_beaver_combine_matches_jax_limb_ops(k, party):
+    """The JAX package's ``DeviceShareVector.beaver_mul`` local algebra
+    (``limb.mod_mul`` / ``mod_add`` one op at a time) on the same opened d,
+    e, triple and MAC key share, exactly; the key at 0, 1, r - 1 and at
+    random."""
+    rng = np.random.default_rng(100 + k + party)
+    m = FR.modulus
+    d, e = _fr_ints(rng, k), _fr_ints(rng, k)[::-1]
+    triple = _pairs(rng, 3, k)
+    de = torch.as_tensor(ints_to_words(d + e))
+    (a, a_m), (b, b_m), (c, c_m) = [[_jl(v) for v in pair] for pair in triple]
+    jd, je = _jl(d), _jl(e)
+    shares = jlimb.mod_add(jlimb.mod_add(c, jlimb.mod_mul(b, jd, jlimb.FR), jlimb.FR),
+                           jlimb.mod_mul(a, je, jlimb.FR), jlimb.FR)
+    d_e = jlimb.mod_mul(jd, je, jlimb.FR)
+    if party == 0:
+        shares = jlimb.mod_add(shares, d_e, jlimb.FR)
+    macs = jlimb.mod_add(jlimb.mod_add(c_m, jlimb.mod_mul(b_m, jd, jlimb.FR), jlimb.FR),
+                         jlimb.mod_mul(a_m, je, jlimb.FR), jlimb.FR)
+    for alpha in (0, 1, m - 1, int.from_bytes(rng.bytes(32), "little") % m):
+        got = kernels.beaver_combine(de, _stack_t(triple), alpha, party)
+        assert got.shape == (2, NW, k)
+        want_m = jlimb.mod_add(macs, jlimb.mod_mul(d_e, jnp.asarray(jlimb.int_to_limbs_np(alpha)), jlimb.FR),
+                               jlimb.FR)
+        assert words_to_ints(got[0]) == _jints(shares)
+        assert words_to_ints(got[1]) == _jints(want_m)
+        host = [(cv + dv * bv + ev * av + (dv * ev if party == 0 else 0)) % m
+                for av, bv, cv, dv, ev in zip(triple[0][0], triple[1][0], triple[2][0], d, e)]
+        assert words_to_ints(got[0]) == host
+
+
+@pytest.mark.parametrize("x", ["zero", "one", "r_minus_1", "random"])
+@pytest.mark.parametrize("k", [16, 48])
+def test_poly3_eval_matches_jax_limb_ops(k, x):
+    """Horner at a public x on both rows equals the JAX package's
+    ``mul_public`` / ``+`` chain (``limb.mod_mul`` / ``mod_add``), exactly."""
+    rng = np.random.default_rng(200 + k)
+    m = FR.modulus
+    xv = {"zero": 0, "one": 1, "r_minus_1": m - 1,
+          "random": int.from_bytes(rng.bytes(32), "little") % m}[x]
+    coeffs = _pairs(rng, 4, k)
+    got = kernels.poly3_eval(_stack_t(coeffs), xv)
+    assert got.shape == (2, NW, k)
+    jx = jnp.asarray(jlimb.int_to_limbs_np(xv))
+    for row in range(2):
+        acc = _jl(coeffs[3][row])
+        for j in (2, 1, 0):
+            acc = jlimb.mod_add(jlimb.mod_mul(acc, jx, jlimb.FR), _jl(coeffs[j][row]), jlimb.FR)
+        host = [(((c3 * xv + c2) * xv + c1) * xv + c0) % m
+                for c0, c1, c2, c3 in zip(*(coeffs[j][row] for j in range(4)))]
+        assert words_to_ints(got[row]) == _jints(acc) == host
+
+
+def test_share_plane_wrappers_reject_bad_operands():
+    """dtype, shape, contiguity, device, lane counts and public scalars are
+    checked before any plain version or launch."""
+    k = 5
+    x = torch.zeros((NW, k), dtype=torch.int64)
+    triple = torch.zeros((3, 2, NW, k), dtype=torch.int64)
+    coeffs = torch.zeros((4, 2, NW, k), dtype=torch.int64)
+    de = torch.zeros((NW, 2 * k), dtype=torch.int64)
+    r = FR.modulus
+    with pytest.raises(TypeError):
+        kernels.beaver_diff(x.int(), x, triple)                            # int64 only
+    with pytest.raises(ValueError):
+        kernels.beaver_diff(x[:, :3].contiguous(), x, triple)              # lane counts differ
+    with pytest.raises(ValueError):
+        kernels.beaver_diff(x, x, triple[:2].contiguous())                 # a triple is 3 pairs
+    with pytest.raises(ValueError):
+        kernels.beaver_diff(x, x, triple.transpose(2, 3).contiguous())     # (3, 2, NW, k)
+    with pytest.raises(ValueError):
+        kernels.beaver_diff(x, x.to("meta"), triple)                       # not a CPU or CUDA tensor
+    with pytest.raises(ValueError):
+        kernels.beaver_combine(de[:, :-1].contiguous(), triple, 1, 0)      # de is (NW, 2k)
+    with pytest.raises(ValueError):
+        kernels.beaver_combine(torch.zeros((2 * k, NW), dtype=torch.int64).T, triple, 1, 0)  # not contiguous
+    with pytest.raises(ValueError):
+        kernels.beaver_combine(de, triple, 1, 2)                           # party 0 or 1
+    with pytest.raises(ValueError):
+        kernels.beaver_combine(de, triple, r, 0)                           # alpha < r
+    with pytest.raises(ValueError):
+        kernels.beaver_combine(de, triple, -1, 1)                          # alpha >= 0
+    with pytest.raises(ValueError):
+        kernels.poly3_eval(triple, 1)                                      # four pairs
+    with pytest.raises(ValueError):
+        kernels.poly3_eval(coeffs[..., None], 1)                           # (4, 2, NW, k)
+    with pytest.raises(ValueError):
+        kernels.poly3_eval(coeffs, r)                                      # x < r
+    with pytest.raises(TypeError):
+        kernels.poly3_eval(coeffs.float(), 1)
 
 
 def test_horner_matches_jax_pallas_horner():
@@ -606,6 +748,22 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
         got = torch.stack([kernels.vec_mul(x, y, FP), kernels.vec_add(x, y[:, :1].contiguous(), FP),
                            kernels.vec_sub(x, y, FP)])
         want = torch.stack([mod_mul(x, y, FP), mod_add(x, y[:, :1], FP), mod_sub(x, y, FP)])
+    elif name in ("beaver_diff", "beaver_combine", "poly3_eval"):   # words < 2^251 < r
+        k = 8
+        words = (a & ((1 << 59) - 1)).reshape(-1)[: 8 * NW * k].reshape(4, 2, NW, k).contiguous()
+        if name == "beaver_diff":
+            x, y = words[3, 0].contiguous(), words[3, 1].contiguous()
+            got, want = kernels.beaver_diff(x, y, words[:3]), kernels.beaver_diff_plain(x, y, words[:3])
+        elif name == "beaver_combine":
+            de = words[3].reshape(NW, 2 * k).contiguous()
+            got = torch.stack([kernels.beaver_combine(de, words[:3], al, p)
+                               for al, p in ((0, 0), (FR.modulus - 1, 1), (12345, 0))])
+            want = torch.stack([kernels.beaver_combine_plain(de, words[:3], al, p)
+                                for al, p in ((0, 0), (FR.modulus - 1, 1), (12345, 0))])
+        else:
+            xs = (0, 1, FR.modulus - 1, 987654321)
+            got = torch.stack([kernels.poly3_eval(words, x) for x in xs])
+            want = torch.stack([kernels.poly3_eval_plain(words, x) for x in xs])
     elif name == "point_horner_multi":
         w = a.reshape(3, NW, 8, 5).permute(2, 0, 1, 3).contiguous()
         got, want = kernels.point_horner_multi(w, 9), kernels.point_horner_plain(w, 9)

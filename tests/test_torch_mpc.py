@@ -35,6 +35,7 @@ from mpc_bulletproof_tpu.models.r1cs_mpc import MpcProver as JMpcProver
 from mpc_bulletproof_tpu.models.r1cs_mpc import SharedInnerProductProof as JSharedIPP
 from mpc_bulletproof_tpu.models.r1cs_mpc.authenticated_poly import AuthenticatedVecPoly3 as JPoly3
 from mpc_bulletproof_tpu.parallel.beaver import PartyIdBeaverSource as JBeaver
+from mpc_bulletproof_tpu.parallel.device_shares import DeviceShareVector as JDeviceShareVector
 from mpc_bulletproof_tpu.parallel.fabric import MpcFabric as JFabric
 from mpc_bulletproof_tpu.parallel.network import make_local_pair as j_make_local_pair
 from mpc_bulletproof_tpu.transcript import MpcTranscript as JMpcTranscript
@@ -256,6 +257,51 @@ def test_device_share_vector_matches_host_vectors(k):
     assert words_to_ints(dev0) == words_to_ints(dev1) == want
 
 
+@pytest.mark.parametrize("k", [16, 40])
+def test_device_beaver_mul_matches_jax_device_share_vector(k):
+    """The fused Beaver round (difference, opening, combination) gives, in
+    both parties, the shares and MACs of the JAX package's
+    ``DeviceShareVector.beaver_mul`` (its limb ops one at a time) and of
+    the host fabric's ``beaver_mul``; the opened products are x y."""
+    rng = random.Random(300 + k)
+    xs, ys = _rand(rng, k), _rand(rng, k)
+    xs[:3] = [0, 1, Scalar.MODULUS - 1]
+    ys[:3] = [Scalar.MODULUS - 1, 0, Scalar.MODULUS - 1]
+
+    def port(fabric):
+        x, y = _share(fabric, xs, 0, k, Scalar), _share(fabric, ys, 1, k, Scalar)
+        z = DeviceShareVector.from_host(x).beaver_mul(DeviceShareVector.from_host(y))
+        assert z.shares.is_contiguous() and z.macs.is_contiguous()
+        return _ints(z.to_host()), _ints(fabric.beaver_mul(x, y)), [int(v) for v in z.to_host().open_authenticated()]
+
+    def jax_(fabric):
+        x, y = _share(fabric, xs, 0, k, JScalar), _share(fabric, ys, 1, k, JScalar)
+        return _ints(JDeviceShareVector.from_host(x).beaver_mul(JDeviceShareVector.from_host(y)).to_host())
+
+    got = _run(port)
+    want = _run(jax_, jax=True)
+    for party in (0, 1):
+        assert got[party][0] == want[party] == got[party][1]
+    assert got[0][2] == got[1][2] == [x * y % Scalar.MODULUS for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("n", [16, 40])
+def test_poly_device_branch_matches_jax_device_branch(n, monkeypatch):
+    """The t-polynomial (one fused Beaver round over 9n lanes) and both
+    evaluations (one ``poly3_eval`` each) on the port's device share plane
+    give the shares, MACs and opened values of the JAX package's
+    ``AuthenticatedVecPoly3`` on its own device branch (forced with
+    ``BP_FORCE_BACKEND=device``, JAX on the CPU), in both parties."""
+    port = _run(lambda f: _poly_parts(n, Scalar)(f, AuthenticatedVecPoly3))
+    calls = []
+    real = JDeviceShareVector.from_host
+    monkeypatch.setattr(JDeviceShareVector, "from_host", staticmethod(lambda v: calls.append(len(v)) or real(v)))
+    monkeypatch.setenv("BP_FORCE_BACKEND", "device")
+    jax_ = _run(lambda f: _poly_parts(n, JScalar)(f, JPoly3), jax=True)
+    assert sorted(set(calls)) == [n, 9 * n]
+    assert port == jax_
+
+
 def test_device_share_vector_tamper_raises():
     def party(tamper):
         def fn(fabric):
@@ -298,8 +344,10 @@ def test_special_inner_product_and_eval_device_branch(monkeypatch):
     n = 16
     fn = _poly_parts(n, Scalar)
     calls = []
-    real = DeviceShareVector.from_host
+    real, real_poly3 = DeviceShareVector.from_host, DeviceShareVector.poly3
     monkeypatch.setattr(DeviceShareVector, "from_host", staticmethod(lambda v: calls.append(len(v)) or real(v)))
+    monkeypatch.setattr(DeviceShareVector, "poly3",
+                        staticmethod(lambda cs, x: calls.append(len(cs[0])) or real_poly3(cs, x)))
     device = _run(lambda f: fn(f, AuthenticatedVecPoly3))
     assert sorted(set(calls)) == [n, 9 * n]
     calls.clear()
@@ -312,26 +360,28 @@ def test_special_inner_product_and_eval_device_branch(monkeypatch):
 
 
 def test_device_branch_launches_vec2_only(monkeypatch):
-    """On a CUDA device the device branch's elementwise work is ``vec2``
-    launches and nothing else (the CUDA branch of the wrappers on CPU
-    tensors: ``_check`` reports a card, ``_launch`` records; the plain
-    versions raise if reached).  Per party: 12 launches for an evaluation
-    at n = 16, and 16 or 17 for the t-polynomial's Beaver round (party 0
-    also adds the public d e to its shares)."""
+    """On a CUDA device the device branch's work is launches of
+    ``csrc/vec2.cu``'s entries and nothing else (the CUDA branch of the
+    wrappers on CPU tensors: ``_check`` reports a card, ``_launch`` records;
+    the plain versions raise if reached).  An evaluation at n = 16 is one
+    ``poly3_eval`` launch; the t-polynomial's Beaver round is three a party
+    (the difference, the opening's sum, the combination), six for both."""
     n = 16
+    lanes_arg = {"vec2": 3, "beaver_diff": 4, "beaver_combine": 4, "poly3_eval": 2}
     calls = []
     monkeypatch.setattr(kernels, "_check", lambda t, *a, **kw: "cuda")
-    monkeypatch.setattr(kernels, "_launch", lambda name, *args: calls.append((name, args[3], args[4])))
+    monkeypatch.setattr(kernels, "_launch", lambda name, *args: calls.append((name, args[lanes_arg[name]])))
 
     def no_plain(*a, **kw):
         raise AssertionError("plain version reached on a CUDA device")
 
     monkeypatch.setattr(kernels, "_VEC_OPS", {op: (code, no_plain) for op, (code, _) in kernels._VEC_OPS.items()})
+    for name in ("beaver_diff_plain", "beaver_combine_plain", "poly3_eval_plain"):
+        monkeypatch.setattr(kernels, name, no_plain)
     fabric = MpcFabric(make_local_pair()[0], PartyIdBeaverSource(0), device="cpu")
     zeros = fabric.zeros_authenticated(n)
     AuthenticatedVecPoly3(zeros, zeros, zeros, zeros).eval(Scalar(3))
-    assert [c[0] for c in calls] == ["vec2"] * 12
-    assert {c[1] for c in calls} == {n}
+    assert calls == [("poly3_eval", n)]
     calls.clear()
 
     def t_poly(f):
@@ -341,8 +391,7 @@ def test_device_branch_launches_vec2_only(monkeypatch):
         return threading.current_thread().name
 
     _run(t_poly)
-    assert [c[0] for c in calls] == ["vec2"] * 33
-    assert {c[1] for c in calls} == {9 * n, 18 * n}
+    assert sorted(calls) == sorted([("beaver_diff", 9 * n), ("vec2", 18 * n), ("beaver_combine", 9 * n)] * 2)
     calls.clear()
     small = fabric.zeros_authenticated(n - 1)
     AuthenticatedVecPoly3(small, small, small, small).eval(Scalar(3))
