@@ -101,11 +101,21 @@ Phases, one JSON object per line on standard output:
 9. ``probes``: the three op-rate probes (``probe_chain``,
    ``probe_xor_chain``, ``probe_accum``), every op of their TPU benches at
    the TPU shapes: each held bit for bit to its plain version (NaN equal to
-   NaN), then timed at the full repetition counts (ms, Gop/s, the bound,
-   the share of the card's resident threads the shape fills, and the
-   dependency bound: dependent instructions a step on one lane's chain x
-   ``DEP_LATENCY_CYCLES`` at the SM clock ``nvidia-smi`` reports while the
-   xor chain runs, ``clock_mhz_under_load``).
+   NaN; ``probe_edges``: also the redesigned two at ``probes.EDGE_*``,
+   ``probe_chain`` at reps 0, 1, U - 1, U, U + 1, 100 and 4,096 and
+   ``probe_accum`` at 2,048, 2,047 and 4,099 lanes and at a 4-byte
+   offset), then timed at the full repetition counts.  A ``probe``
+   line: ms by events and by the profiler (``device_ms``), cycles a step
+   at the SM clock ``nvidia-smi`` reports while the xor chain runs
+   (``clock_mhz_under_load``), the byte bound, the per-pipe bound
+   (``pipe_bound_ms``: the instructions a lane-step the op needs per pipe,
+   ``PROBE_NEEDS``, at Hopper's issue rates, ``pipe`` the one that sets
+   it), the dependency bound (dependent instructions a step on one lane's
+   chain x ``DEP_LATENCY_CYCLES``), their shares of the device time, and,
+   as a diagnostic, the main loop's opcode histogram read from
+   ``cuobjdump -sass`` of the built library, its instructions a lane-step
+   per pipe and the time they take to issue (``sass_issue_ms``;
+   ``probe_sass`` lists every row whose loop issues more than it needs).
 10. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
    ``point_reduce`` this one replaced, built from DIR (an older tree's
    ``mpc_bulletproof_tpu_torch/csrc``), against this tree's at the A bit
@@ -177,6 +187,9 @@ MSM_SETUP_COMMITS = 1 << 17
 # no published integer rate outside the tensor cores; the integer
 # multiply-add issues no faster than the float32 FMA, so the float32 rate
 # gives a lower bound on the time (2 operations per 32-bit multiply-add).
+# On compute capability 9.0 an IMAD issues at half the FP32 FMA's rate, so
+# these bounds are 2x low for integer work; the probes count per pipe
+# (PIPE_RATE below).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 # Montgomery product on 8 x 32-bit limbs: 64 limb products for a b plus the
@@ -204,9 +217,11 @@ GCD_STEP_OPS = 32
 # latency of the fixed-latency ALU instructions (IMAD, IADD3, LOP3, SHF,
 # FMUL, FADD) that microbenchmarks of Volta to Ampere report (Jia et al.,
 # "Dissecting the NVIDIA Volta GPU Architecture via Microbenchmarking",
-# 2018); NVIDIA publishes none for Hopper, so it is assumed, not measured.
-# Ops through the conversion pipe (I2F, F2I, FRND) have no fixed latency
-# and get no dependency bound (None).
+# 2018); NVIDIA publishes none for Hopper.  probe_chain measures it: its
+# cycles a step hold one dependent instruction (two for the mul-adds)
+# plus the loop's and the launch's share.  Ops through the conversion
+# pipe (I2F, F2I, FRND) have no fixed latency and get no dependency
+# bound (None).
 DEP_LATENCY_CYCLES = 4
 PROBE_DEP_STEPS = {
     # acc = op(acc, y): a * y + y is one IMAD; the shift-mask's LOP3 and SHF
@@ -222,6 +237,158 @@ PROBE_DEP_STEPS = {
     "probe_accum": {op: 1 for op in ("i32_mul", "i32_add", "i32_shift_and", "f32_mul", "f32_fma",
                                      "i32_mul16_masked", "i32_mul16_sext", "i32_mul16_one_side")},
 }
+
+# The probes' throughput bound, counted from what each probe's function
+# needs: for each pipe, the instructions a lane-step must issue there over
+# that pipe's lanes a clock an SM (CUDA C++ Programming Guide, "Throughput
+# of Native Arithmetic Instructions", compute capability 9.0: 128 FP32
+# add/mul/FMA, 64 of each 32-bit integer add, multiply(-add), shift,
+# compare or bitwise op, 16 conversions), and all of them over the 128
+# lanes a clock an SM dispatches (4 schedulers of one warp instruction a
+# clock), at the clock under load.  The bound is the largest of these
+# times.  Loop control, and whatever the compiler adds to a step or puts
+# on a busier pipe, is time lost, not part of the bound: the SASS of the
+# built loop is printed beside it (``sass_rows``), never counted in it.
+# Pipes: "imad" an integer multiply(-add) (FMA pipe), "alu" a bitwise op,
+# shift, three-input add or I2FP (ALU), "int" a two-input integer add,
+# which issues on either (IADD3 on the ALU, VIADD on the FMA pipe, so
+# "alu", "imad" and "int" together share 128 lanes a clock), "fp32",
+# "conv" F2I and FRND.  Which pipe VIADD and I2FP take is not published;
+# the card's times decide (PERF.md, PR 9): xor's baseline_xor, whose loop
+# issues 5 VIADDs each 4 steps, runs at 97% of them on the FMA pipe and
+# faster than they would take on the ALU; i32_to_f32 runs faster than
+# its I2FP and F2I would take on the conversion pipe.
+PIPE_RATE = {"fp32": 128, "alu": 64, "imad": 64, "conv": 16}
+INT_RATE = 128
+DISPATCH_RATE = 128
+PROBE_NEEDS = {  # probe -> op -> instructions a lane-step per pipe
+    "probe_chain": {  # acc = op(acc, y)
+        "i32_mul": {"imad": 1}, "i32_mul_add": {"imad": 1}, "i32_add": {"int": 1},
+        "i32_shift_mask": {"alu": 2, "int": 1},        # the mask, the shift, the add of three
+        "f32_mul": {"fp32": 1}, "f32_mul_add": {"fp32": 2}, "f32_add": {"fp32": 1},
+        "f32_carry": {"fp32": 4, "conv": 1},             # FMUL, FRND, FMUL, FADD, FADD
+    },
+    "probe_xor_chain": {  # acc = op(acc, x) ^ i (float: + (i & 3), a constant once unrolled)
+        "baseline_xor": {"alu": 1}, "i32_mul": {"imad": 1, "alu": 1}, "i32_add": {"int": 1, "alu": 1},
+        "i32_mul_mask": {"imad": 1, "alu": 1},           # the mask and the xor in one LOP3
+        "i32_shift": {"alu": 2},                         # (a >> 13) + b in one LEA.HI, the xor
+        "f32_mul": {"fp32": 2}, "f32_add": {"fp32": 2}, "f32_fma": {"fp32": 3},
+        "i32_to_f32": {"alu": 2, "fp32": 1, "conv": 1},  # I2FP, FADD, F2I, LOP3
+        "f32_floor": {"fp32": 3, "conv": 1},             # FMUL, FRND, FADD, FADD
+    },
+    "probe_accum": {  # acc += op(a + i, b): a + i is one add a lane-step
+        "i32_mul": {"imad": 1, "int": 1},
+        "i32_add": {"alu": 1, "int": 1},                 # acc + (a + i) + b in one IADD3
+        "i32_shift_and": {"alu": 2, "int": 1},           # the mask, then the shift and add in one LEA.HI
+        "f32_mul": {"fp32": 1}, "f32_fma": {"fp32": 1},  # op(a, b) is the same every step
+        "i32_mul16_masked": {"alu": 1, "imad": 1, "int": 1},
+        "i32_mul16_sext": {"alu": 1, "imad": 1, "int": 1},
+        "i32_mul16_one_side": {"alu": 1, "imad": 1, "int": 1},
+    },
+}
+# SASS opcode (up to its first '.') -> pipe, for the printed histograms;
+# any other opcode (uniform datapath, loads, stores) counts for dispatch
+# only ("other").
+SASS_PIPE = {
+    **dict.fromkeys(("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP"), "fp32"),
+    **dict.fromkeys(("IADD3", "LOP3", "SHF", "ISETP", "IMNMX", "SEL", "LEA", "MOV", "PRMT", "SGXT",
+                     "IABS", "BMSK", "I2FP"), "alu"),
+    **dict.fromkeys(("IMAD", "VIADD"), "imad"),
+    **dict.fromkeys(("I2F", "F2I", "FRND", "F2F", "F2IP"), "conv"),
+    **dict.fromkeys(("BRA", "BRX", "JMP"), "branch"),
+}
+# each probe's kernel function in csrc/probes.cu, and the lane-steps one
+# iteration of its main loop runs: CHAIN_STEPS steps of one lane, 4 steps
+# of one lane (unrolled by 4), ACCUM_STEPS steps of 4 lanes
+PROBE_KERNEL = {"probe_chain": "chain_kernel", "probe_xor_chain": "xor_chain_kernel",
+                "probe_accum": "accum_kernel"}
+LOOP_LANE_STEPS = {"probe_chain": 32, "probe_xor_chain": 4, "probe_accum": 64 * 4}
+
+
+def pipe_bound_ms(lane_steps: float, needs: dict, clock_mhz: float) -> tuple[float, str]:
+    """The least time (ms) to issue ``lane_steps`` lane-steps of
+    ``needs`` instructions each (per pipe, as in :data:`PROBE_NEEDS`;
+    ``other`` counts for dispatch only, ``branch`` not at all) on all SMs
+    at ``clock_mhz``; and the pipe (or ``int``, ``dispatch``) that sets
+    it."""
+    t = {p: needs.get(p, 0) / rate for p, rate in PIPE_RATE.items()}
+    t["int"] = sum(needs.get(p, 0) for p in ("alu", "imad", "int")) / INT_RATE
+    t["dispatch"] = sum(n for p, n in needs.items() if p != "branch") / DISPATCH_RATE
+    pipe = max(t, key=t.get)
+    return lane_steps * t[pipe] / (clock_mhz * 1e6 * SMS) * 1e3, pipe
+
+
+def demangle_template(name: str) -> str:
+    """``_Z12chain_kernelILi0EEv...`` -> ``chain_kernel<0>`` (the one-int
+    templates of csrc/probes.cu); other names unchanged."""
+    m = re.match(r"_Z(\d+)", name)
+    if not m:
+        return name
+    base = name[m.end():m.end() + int(m.group(1))]
+    t = re.match(r"ILi(\d+)E", name[m.end() + int(m.group(1)):])
+    return f"{base}<{t.group(1)}>" if t else base
+
+
+def sass_functions(text: str) -> dict:
+    """``cuobjdump -sass`` output -> ``{function: [(address, opcode, operands)]}``."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(demangle_template(m.group(1)), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
+    return out
+
+
+def main_loop(code: list) -> list:
+    """The instructions of a function's main loop: of the loops that hold no
+    other loop (a backward branch and its target), the longest."""
+    loops = []
+    for addr, op, args in code:
+        t = re.findall(r"0x([0-9a-f]+)", args)
+        if op.split(".")[0] == "BRA" and t and int(t[-1], 16) < addr:
+            loops.append((int(t[-1], 16), addr))
+    inner = [(a, b) for a, b in loops if not any((c, d) != (a, b) and a <= c and d <= b for c, d in loops)]
+    if not inner:
+        return []
+    lo, hi = max(inner, key=lambda ab: sum(1 for x, op, _ in code if ab[0] <= x <= ab[1] and op != "NOP"))
+    return [(x, op, args) for x, op, args in code if lo <= x <= hi and op != "NOP"]
+
+
+def loop_pipes(body: list) -> tuple[dict, dict]:
+    """A loop body's opcode histogram and its instructions per pipe."""
+    hist: dict = {}
+    pipes: dict = {}
+    for _, op, _ in body:
+        hist[op] = hist.get(op, 0) + 1
+        pipe = SASS_PIPE.get(op.split(".")[0], "other")
+        pipes[pipe] = pipes.get(pipe, 0) + 1
+    return hist, pipes
+
+
+def sass_rows(lib: str) -> dict:
+    """For each probe kernel and op: its main loop's opcode histogram from
+    ``cuobjdump -sass`` of the built library, and that loop's instructions
+    a lane-step per pipe (a diagnostic: the bound counts
+    :data:`PROBE_NEEDS`)."""
+    from mpc_bulletproof_tpu_torch.ops import kernels, probes
+
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs = sass_functions(text)
+    ops = {"probe_chain": probes.CHAIN_OPS, "probe_xor_chain": probes.XOR_OPS,
+           "probe_accum": probes.ACCUM_OPS}
+    rows: dict = {}
+    for name, names in ops.items():
+        for i, op in enumerate(names):
+            hist, pipes = loop_pipes(main_loop(funcs.get(f"{PROBE_KERNEL[name]}<{i}>", [])))
+            per = {p: n / LOOP_LANE_STEPS[name] for p, n in pipes.items()}
+            rows.setdefault(name, {})[op] = {"sass_hist": hist, "sass_per_lane_step": per}
+    return rows
 
 
 def gcd_ops(fr: bool) -> int:
@@ -352,14 +519,20 @@ def device_ms(fn, reps: int, per_call: bool = False, counts: dict | None = None)
     return device_ms_by_name([("", fn)], reps, counts, per_call)[""]
 
 
+PROFILER_PAD = 100  # untimed launches that open each profiled session
+PROFILER_ATTEMPTS = 3  # sessions at most for one measurement (see device_ms_by_name)
+
+
 def device_ms_by_name(runs, reps: int, counts: dict | None = None, per_call: bool = False) -> dict:
     """Device time of one kernel launch per ``(kernel name prefix, fn)``,
     from ONE torch.profiler session over ``reps`` calls of each ``fn`` (one
     launch each, after one warm-up each): the kernel rows whose name, less
     a leading ``void``, starts with the prefix, over the launches the
-    profiler recorded (it can record fewer than ``reps`` of a session's
-    first kernel; ``counts``, if given, gets the recorded launches per
-    prefix).  None where the profiler saw no such kernel.  ``per_call``:
+    profiler recorded in the session's active step (a warm-up step runs
+    :data:`PROFILER_PAD` sleeps and each ``fn`` once first; a session in
+    which some prefix recorded no launch is run again, up to
+    :data:`PROFILER_ATTEMPTS` in all; ``counts``, if given, gets the
+    recorded launches per prefix).  None where the profiler saw no such kernel.  ``per_call``:
     the time of one call of ``fn``, however many kernels it launches
     (copies included; give one run, prefix ``""``): each kernel row's mean
     over its recorded launches times its whole launches a call (its
@@ -369,18 +542,32 @@ def device_ms_by_name(runs, reps: int, counts: dict | None = None, per_call: boo
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _, fn in runs:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _, fn in runs:
-            for _ in range(reps):
+    # A warm-up step, traced and dropped: a session records none of its
+    # first ~20 to 25 launches, so the step launches PROFILER_PAD untimed
+    # sleeps (~50 us each) and one run of each fn.  Even so a short session
+    # now and then records nothing at all; such a session is run again.
+    for _ in range(PROFILER_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(PROFILER_PAD):
+                torch.cuda._sleep(100_000)
+            for _, fn in runs:
                 fn()
-        torch.cuda.synchronize()
-    rows = [(ev.key, ev.self_device_time_total, ev.count) for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA]
+            torch.cuda.synchronize()
+            prof.step()
+            for _, fn in runs:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+            prof.step()
+        # device rows, less the step's own annotation, which spans the step
+        rows = [(ev.key, ev.self_device_time_total, ev.count) for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and not ev.key.startswith("ProfilerStep")
+                and "spin_kernel" not in ev.key]
+        if all(any(key.removeprefix("void ").startswith(prefix) and n for key, _, n in rows) for prefix, _ in runs):
+            break
     out = {}
     for prefix, _ in runs:
         hits = [(us, n) for key, us, n in rows if key.removeprefix("void ").startswith(prefix) and n]
@@ -1753,10 +1940,62 @@ def clock_under_load(fn, launches: int = 300, samples: int = 3) -> float:
     return statistics.median(got)
 
 
+def probe_err(got, want) -> float:
+    """Largest |got - want| of two probe outputs, NaN equal to NaN."""
+    import torch
+
+    if got.dtype == torch.int32:
+        return float((got.long() - want.long()).abs().max())
+    same = (got == want) | (got.isnan() & want.isnan())
+    return 0.0 if bool(same.all()) else float((got - want)[~same].abs().nan_to_num(float("inf")).max())
+
+
+def probe_edges(gpu: str, dev) -> dict:
+    """The redesigned probes' edge cases (``probes.EDGE_*``), every op
+    against its plain version: ``probe_chain`` at reps 0, 1, U - 1, U, U +
+    1, 100 and 4,096 (U = CHAIN_STEPS: no unrolled iteration, the tail
+    alone, both), and ``probe_accum`` at 2,048, 2,047 and 4,099 lanes (the
+    16-byte path and its scalar tail) and on a view at a 4-byte offset
+    (the scalar path), with int32 edge lanes, at rep 64, 0, 5 and 100."""
+    import numpy as np
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(6)
+    chain_reps = probes.EDGE_CHAIN_REPS
+    x, y = (torch.as_tensor(rng.integers(1, 1 << 12, probes.CHAIN_SHAPE, dtype=np.int32), device=dev)
+            for _ in range(2))
+    checked = 0
+    for op in probes.CHAIN_OPS:
+        xo, yo = (x, y) if probes.op_dtype(op) == torch.int32 else (x.float(), y.float())
+        for reps in chain_reps:
+            if probe_err(probes.probe_chain(op, xo, yo, reps), probes.chain_plain(op, xo, yo, reps)) != 0:
+                raise RuntimeError(f"probe_chain {op} at {reps} reps disagrees with its plain version")
+            checked += 1
+    accum_lanes = probes.EDGE_ACCUM_LANES
+    for n, off in accum_lanes:
+        a, b = (torch.as_tensor(rng.integers(0, 1 << 13, n + off).astype(np.int32), device=dev) for _ in range(2))
+        a[off:off + 3] = torch.tensor([2**31 - 1, -1, -(2**31)], dtype=torch.int32)
+        for op in probes.ACCUM_OPS:
+            ao, bo = ((a, b) if probes.op_dtype(op) == torch.int32 else (a.float(), b.float()))
+            ao, bo = ao[off:], bo[off:]
+            for rep in probes.EDGE_ACCUM_REPS:
+                if probe_err(probes.probe_accum(op, ao, bo, rep), probes.accum_plain(op, ao, bo, rep)) != 0:
+                    raise RuntimeError(f"probe_accum {op} at {n} lanes, offset {off}, rep {rep} disagrees")
+                checked += 1
+    torch.cuda.synchronize()
+    row = {"phase": "probe_edges", "chain_reps": chain_reps, "accum_lanes_offset": accum_lanes,
+           "cases": checked, "all_equal": True, "gpu": gpu}
+    emit(row)
+    return row
+
+
 def probes_phase(gpu: str, dev) -> dict:
     """Every op of the three probes at its TPU shape: held to its plain
     version bit for bit (NaN equal to NaN) at ``check_reps``, then launched
-    once at the full counts (the launches read), then timed."""
+    once at the full counts (the launches read), then timed; each row with
+    its main loop's SASS (:func:`sass_rows`), its bounds and cycles a step."""
     import torch
 
     from mpc_bulletproof_tpu_torch.ops import kernels, probes
@@ -1770,14 +2009,9 @@ def probes_phase(gpu: str, dev) -> dict:
         "probe_accum": ("accum", probes.ACCUM_OPS, probes.ACCUM_OPS_PER_STEP, probes.probe_accum,
                         probes.accum_plain, probes.ACCUM_REP, probes.ACCUM_REP),
     }
+    probe_edges(gpu, dev)
     inputs = probe_inputs(dev)
     args = lambda key, op: inputs[key][probes.op_dtype(op)]
-
-    def err(got, want) -> float:
-        if got.dtype == torch.int32:
-            return float((got.long() - want.long()).abs().max())
-        same = (got == want) | (got.isnan() & want.isnan())
-        return 0.0 if bool(same.all()) else float((got - want)[~same].abs().nan_to_num(float("inf")).max())
 
     rows: dict = {}
     for name, (key, ops, per_step, fn, plain, full, check) in specs.items():
@@ -1785,7 +2019,7 @@ def probes_phase(gpu: str, dev) -> dict:
             got = fn(op, *args(key, op), check)
             torch.cuda.synchronize()
             want, plain_ms = timed_ms(lambda: plain(op, *args(key, op), check))
-            e = err(got, want)
+            e = probe_err(got, want)
             if e != 0:
                 raise RuntimeError(f"{name} {op} disagrees with its plain version (max err {e})")
             rows.setdefault(name, {})[op] = {"check_reps": check, "max_abs_err": e,
@@ -1800,9 +2034,8 @@ def probes_phase(gpu: str, dev) -> dict:
     torch.cuda.synchronize()
     launches = read_launches("probes")
 
-    kernel_of = {"probe_chain": "chain_kernel", "probe_xor_chain": "xor_chain_kernel",
-                 "probe_accum": "accum_kernel"}
-    runs = [(f"{kernel_of[name]}<{i}>(", lambda fn=fn, op=op, a=args(key, op), full=full: fn(op, *a, full))
+    sass = sass_rows(kernels.build()["probe_chain"][0])
+    runs = [(f"{PROBE_KERNEL[name]}<{i}>(", lambda fn=fn, op=op, a=args(key, op), full=full: fn(op, *a, full))
             for name, (key, ops, _, fn, _, full, _) in specs.items() for i, op in enumerate(ops)]
     recorded: dict = {}
     dev_ms = device_ms_by_name(runs, 20, recorded)
@@ -1815,15 +2048,22 @@ def probes_phase(gpu: str, dev) -> dict:
             lanes = a[0].numel()
             r = rows[name][op]
             r["ms"] = cuda_ms(lambda: fn(op, *a, full), 20)
-            r["device_ms"] = dev_ms[f"{kernel_of[name]}<{i}>("]
-            r["device_launches_recorded"] = recorded[f"{kernel_of[name]}<{i}>("]
-            ops_count = lanes * full * per_step[op]
-            r["bound_ms"], r["bound_by"] = bound(lanes * 4 * (len(a) + 1), ops_count)
-            r["gops_per_s"] = ops_count / r["ms"] / 1e6
+            r["device_ms"] = d_ms = dev_ms[f"{PROBE_KERNEL[name]}<{i}>("]
+            r["device_launches_recorded"] = recorded[f"{PROBE_KERNEL[name]}<{i}>("]
+            r["cycles_per_step"] = None if d_ms is None else d_ms * clock_mhz * 1e3 / full
+            r["bytes_bound_ms"] = lanes * 4 * (len(a) + 1) / HBM_BYTES_PER_S * 1e3
+            r["pipe_bound_ms"], r["pipe"] = pipe_bound_ms(lanes * full, PROBE_NEEDS[name][op], clock_mhz)
+            r.update(sass[name][op])
+            r["sass_issue_ms"] = pipe_bound_ms(lanes * full, r["sass_per_lane_step"], clock_mhz)[0]
+            r["bound_ms"] = max(r["bytes_bound_ms"], r["pipe_bound_ms"])
+            r["bound_by"] = "bytes" if r["bytes_bound_ms"] >= r["pipe_bound_ms"] else "operations"
+            r["gops_per_s"] = lanes * full * per_step[op] / r["ms"] / 1e6
             r["fill_share"] = min(1.0, lanes / RESIDENT_THREADS)
             dep = PROBE_DEP_STEPS[name][op]
             r["dependency_bound_ms"] = None if dep is None else \
                 full * dep * DEP_LATENCY_CYCLES / (clock_mhz * 1e3)
+            r["bound_share"] = None if d_ms is None else r["bound_ms"] / d_ms
+            r["dependency_share"] = None if d_ms is None or dep is None else r["dependency_bound_ms"] / d_ms
             r["clock_mhz_under_load"] = clock_mhz
             if name == "probe_xor_chain":
                 lo_ms = cuda_ms(lambda: fn(op, *a, xor_lo), 20)
@@ -1835,15 +2075,22 @@ def probes_phase(gpu: str, dev) -> dict:
         a = args(key, "i32_mul")
         got = fn("i32_mul", *a, full)
         want, plain_full_ms = timed_ms(lambda: plain("i32_mul", *a, full))
-        e = err(got, want)
+        e = probe_err(got, want)
         if e != 0:
             raise RuntimeError(f"{name} i32_mul disagrees with its plain version at {full} reps")
         m = rows[name]["i32_mul"]
         summary[name] = {"kernel_ms": m["ms"], "device_ms": m["device_ms"], "plain_ms": plain_full_ms,
-                         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "op": "i32_mul",
-                         "dependency_bound_ms": m["dependency_bound_ms"], "clock_mhz_under_load": clock_mhz,
+                         "op": "i32_mul", "clock_mhz_under_load": clock_mhz,
+                         **{k: m[k] for k in ("bound_ms", "bound_by", "pipe", "pipe_bound_ms", "bound_share",
+                                              "dependency_bound_ms", "dependency_share", "cycles_per_step")},
+                         "sass_over_need": {op: v["sass_issue_ms"] / v["pipe_bound_ms"] for op, v in rows[name].items()
+                                            if v["sass_issue_ms"] > v["pipe_bound_ms"]},
                          "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
-                         "equal": True, "fill_share": m["fill_share"], "ops": rows[name]}
+                         "equal": True, "fill_share": m["fill_share"],
+                         "ops": {op: {k: v for k, v in r.items() if k not in ("sass_hist", "sass_per_lane_step")}
+                                 for op, r in rows[name].items()}}
+    emit({"phase": "probe_sass", "over_need": {name: c["sass_over_need"] for name, c in summary.items()},
+          "rows": {name: {op: v["sass_hist"] for op, v in r.items()} for name, r in sass.items()}})
     return {"launches": launches, "checks": summary}
 
 
@@ -2043,7 +2290,8 @@ def kernel_summary(checks: dict, paths: dict, ptxas: dict) -> list:
         }
         for extra in ("ops", "at_paths", "op", "fill_share", "launch", "design", "serial", "sweep",
                       "gcd_vs_ladder", "plan", "launches_per_call", "dependency_bound_ms", "plans_check",
-                      "public_b", "vs_composed", "clock_mhz_under_load"):
+                      "public_b", "vs_composed", "clock_mhz_under_load", "pipe", "pipe_bound_ms",
+                      "bound_share", "dependency_share", "cycles_per_step", "sass_over_need"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "point_reduce":   # the fold and every tree depth

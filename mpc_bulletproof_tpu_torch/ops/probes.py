@@ -39,8 +39,22 @@ ACCUM_OPS = ("i32_mul", "i32_add", "i32_shift_and", "f32_mul", "f32_fma",
 
 # the TPU probes' shapes and repetition counts
 CHAIN_SHAPE, CHAIN_REPS = (8, 512), 4096                   # one VMEM tile
+# steps an iteration of probe_chain's unrolled loop (CHAIN_STEPS in csrc/probes.cu);
+# the reps past a multiple of it run one an iteration
+CHAIN_STEPS = 32
 XOR_SHAPE, XOR_REPS = (2048, 8, 256), (512, 4096)          # grid 2048 of (1, 8, 256)
 ACCUM_SHAPE, ACCUM_REP = (512, 8, 128), 64                 # grid 512 of (1, 8, 128)
+# steps an iteration of probe_accum's unrolled loop (ACCUM_STEPS in csrc/probes.cu)
+ACCUM_STEPS = 64
+
+# The redesigned kernels' edge cases, held to the plain versions on the
+# card: probe_chain's counts with no unrolled iteration, the tail alone and
+# both; probe_accum's (lanes, offset in lanes) for the 16-byte path, its
+# scalar tail and the scalar path (a view at a 4-byte offset), each at
+# EDGE_ACCUM_REPS (one unrolled iteration, none, the tail alone, both).
+EDGE_CHAIN_REPS = (0, 1, CHAIN_STEPS - 1, CHAIN_STEPS, CHAIN_STEPS + 1, 100, CHAIN_REPS)
+EDGE_ACCUM_LANES = ((2048, 0), (2047, 0), (4099, 0), (4099, 1))
+EDGE_ACCUM_REPS = (ACCUM_REP, 0, 5, ACCUM_STEPS + 36)
 
 # Arithmetic operations per chain step (loop control not counted), for the
 # bound and the rates: the op's own operations plus the xor / add that

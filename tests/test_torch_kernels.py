@@ -721,6 +721,119 @@ def test_probe_wrappers_reject_bad_operands():
         probes.probe_xor_chain("i32_add", xi, -1)                        # negative count
 
 
+# ---------------------------------------------------------------------------
+# the probes' bounds and SASS reading (chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    spec = importlib.util.spec_from_file_location("_chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMS_HZ = 132 * 1980e6
+XOR_LANE_STEPS = 2048 * 8 * 256 * 4096
+
+
+@pytest.mark.parametrize("lane_steps,needs,ms,pipe", [
+    # the xor chain's i32_mul needs an IMAD and a LOP3 a lane-step, one on each 64-lane pipe
+    (XOR_LANE_STEPS, {"imad": 1, "alu": 1}, XOR_LANE_STEPS / (64 * _SMS_HZ) * 1e3, "alu"),
+    # one conversion a lane-step at 16 a clock outweighs 2 ALU at 64
+    (XOR_LANE_STEPS, {"alu": 2, "fp32": 1, "conv": 1}, XOR_LANE_STEPS / (16 * _SMS_HZ) * 1e3, "conv"),
+    # 2 FP32 a lane-step at 128, but 2.5 instructions a lane-step to dispatch (the branch left out)
+    (XOR_LANE_STEPS, {"fp32": 2, "other": 0.5}, XOR_LANE_STEPS * 2.5 / (128 * _SMS_HZ) * 1e3, "dispatch"),
+    (XOR_LANE_STEPS, {"fp32": 2, "other": 0.5, "branch": 2}, XOR_LANE_STEPS * 2.5 / (128 * _SMS_HZ) * 1e3,
+     "dispatch"),
+    # probe_accum's i32_mul: an IMAD and an add a lane-step, 0.00201 ms at the TPU shape
+    (512 * 8 * 128 * 64, {"imad": 1, "int": 1}, 512 * 8 * 128 * 64 / (64 * _SMS_HZ) * 1e3, "imad"),
+    # probe_chain's f32_mul_add: 2 FP32 a step at 128
+    (8 * 512 * 4096, {"fp32": 2}, 8 * 512 * 4096 * 2 / (128 * _SMS_HZ) * 1e3, "fp32"),
+    # an add issues on either integer pipe: 1 ALU op and 2 adds share 128 lanes a clock
+    (8 * 512 * 4096, {"alu": 1, "int": 2}, 8 * 512 * 4096 * 3 / (128 * _SMS_HZ) * 1e3, "int"),
+], ids=["xor_i32_mul", "conv", "dispatch", "branch_not_dispatched", "accum_i32_mul", "chain_f32_mul_add",
+        "int_either_pipe"])
+def test_probe_pipe_bound_reckoning(chip_smoke, lane_steps, needs, ms, pipe):
+    got_ms, got_pipe = chip_smoke.pipe_bound_ms(lane_steps, needs, 1980.0)
+    assert got_pipe == pipe
+    assert got_ms == pytest.approx(ms, rel=1e-12)
+
+
+@pytest.mark.parametrize("name,op", [("probe_chain", op) for op in probes.CHAIN_OPS]
+                         + [("probe_xor_chain", op) for op in probes.XOR_OPS]
+                         + [("probe_accum", op) for op in probes.ACCUM_OPS])
+def test_probe_pipe_table_has_every_op(chip_smoke, name, op):
+    """Every probe op has the instructions a lane-step it needs per pipe
+    and its dependency steps; a main loop's lane-steps an iteration are
+    the kernel's unroll (probe_chain CHAIN_STEPS, the xor chain 4,
+    probe_accum ACCUM_STEPS steps of 4 lanes)."""
+    needs = chip_smoke.PROBE_NEEDS[name][op]
+    assert set(needs) <= set(chip_smoke.PIPE_RATE) | {"int"}
+    assert all(isinstance(v, int) and v > 0 for v in needs.values())
+    assert op in chip_smoke.PROBE_DEP_STEPS[name]
+    assert chip_smoke.LOOP_LANE_STEPS[name] == {"probe_chain": probes.CHAIN_STEPS, "probe_xor_chain": 4,
+                                                "probe_accum": 4 * probes.ACCUM_STEPS}[name]
+
+
+def test_probe_chain_steps_match_source():
+    src = (ROOT / "mpc_bulletproof_tpu_torch" / "csrc" / "probes.cu").read_text()
+    assert f"static const int CHAIN_STEPS = {probes.CHAIN_STEPS};" in src
+    assert f"static const int ACCUM_STEPS = {probes.ACCUM_STEPS};" in src
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _Z12accum_kernelILi3EEvPKvS1_Pvxxi
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                                   /* 0x00000a00ff017b82 */
+        /*0010*/                   FADD R2, R2, R3 ;
+        /*0020*/                   ISETP.NE.AND P0, PT, R4, RZ, PT ;
+        /*0030*/              @!P0 BRA 0x10 ;
+        /*0040*/                   FADD R2, R2, R3 ;
+        /*0050*/                   FADD R5, R5, R3 ;
+        /*0060*/                   FADD R6, R6, R3 ;
+        /*0070*/                   NOP ;
+        /*0080*/                   IADD3 R4, R4, 0x1, RZ ;
+        /*0090*/               @P0 BRA 0x40 ;
+        /*00a0*/                   VIADD R7, R7, 0x1 ;
+        /*00b0*/                   UIADD3 UR4, UR4, 0x1, URZ ;
+        /*00c0*/                   BRA 0x10 ;
+        /*00d0*/                   EXIT ;
+        /*00e0*/                   BRA 0xe0;
+\t\t..........
+
+\t\tFunction : _Z12chain_kernelILi0EEvPKvS1_Pvxij
+        /*0000*/                   IMAD R2, R2, R3, R4 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_sass_main_loop_histogram(chip_smoke):
+    """The innermost loops of a function are [0x10, 0x30] and [0x40, 0x90]
+    (the loop [0x10, 0xc0] holds both, the branch at 0xe0 is to itself):
+    the longer is the main loop; NOP is not counted, the branch is."""
+    funcs = chip_smoke.sass_functions(_SASS)
+    assert set(funcs) == {"accum_kernel<3>", "chain_kernel<0>"}
+    body = chip_smoke.main_loop(funcs["accum_kernel<3>"])
+    assert [addr for addr, _, _ in body] == [0x40, 0x50, 0x60, 0x80, 0x90]
+    hist, pipes = chip_smoke.loop_pipes(body)
+    assert hist == {"FADD": 3, "IADD3": 1, "BRA": 1}
+    assert pipes == {"fp32": 3, "alu": 1, "branch": 1}
+    assert chip_smoke.main_loop(funcs["chain_kernel<0>"]) == []
+
+
+@pytest.mark.parametrize("opcode,pipe", [("IMAD.IADD", "imad"), ("VIADD", "imad"), ("IADD3", "alu"),
+                                         ("LEA.HI.SX32", "alu"), ("I2FP.F32.S32", "alu"),
+                                         ("F2I.TRUNC.NTZ", "conv"), ("FRND.FLOOR", "conv"),
+                                         ("FFMA", "fp32"), ("UIADD3", "other"), ("BRA", "branch")])
+def test_sass_opcode_pipes(chip_smoke, opcode, pipe):
+    assert chip_smoke.loop_pipes([(0, opcode, "")])[1] == {pipe: 1}
+
+
 def _random_points_t(k: int, seed: int, dev):
     pts = _jax_points(k, seed)
     return convert.points_from_jax(cj.points_from_host(pts), device=dev)
@@ -809,3 +922,39 @@ def _probes_match_plain_on_card(name: str, dev) -> None:
             got, want = probes.probe_accum(op, x, y, 64), probes.accum_plain(op, x, y, 64)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", probes.CHAIN_OPS)
+def test_probe_chain_reps_on_card(cuda_device, op):
+    """The unrolled chain and its one-step tail, at reps 0, 1, U - 1, U,
+    U + 1, 100 and 4,096 (U = CHAIN_STEPS), on the bench's tile."""
+    rng = np.random.default_rng(6)
+    x, y = (torch.as_tensor(rng.integers(1, 1 << 12, probes.CHAIN_SHAPE, dtype=np.int32), device=cuda_device)
+            for _ in range(2))
+    if probes.op_dtype(op) == torch.float32:
+        x, y = x.float(), y.float()
+    for reps in probes.EDGE_CHAIN_REPS:
+        got, want = probes.probe_chain(op, x, y, reps), probes.chain_plain(op, x, y, reps)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", probes.ACCUM_OPS)
+def test_probe_accum_lanes_on_card(cuda_device, op):
+    """The 16-byte path (2,048 lanes), with a scalar tail (2,047 and 4,099
+    lanes), and a contiguous view at a 4-byte offset, which takes the scalar
+    path; int32 edge lanes (2^31 - 1, -1, -2^31) at its start."""
+    rng = np.random.default_rng(7)
+    for n, off in probes.EDGE_ACCUM_LANES:
+        a, b = (torch.as_tensor(rng.integers(0, 1 << 13, n + off).astype(np.int32), device=cuda_device)
+                for _ in range(2))
+        a[off:off + 3] = torch.tensor([2**31 - 1, -1, -(2**31)], dtype=torch.int32)
+        if probes.op_dtype(op) == torch.float32:
+            a, b = a.float(), b.float()
+        a, b = a[off:], b[off:]
+        for rep in probes.EDGE_ACCUM_REPS:
+            got, want = probes.probe_accum(op, a, b, rep), probes.accum_plain(op, a, b, rep)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
