@@ -9,6 +9,8 @@ Phases, one JSON object per line on standard output:
 1. ``env``: torch and CUDA versions, the ``nvcc`` path, the card.
 2. ``build``: all thirteen CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with each library's ptxas report.
+   ``clock``: the SM clock ``nvidia-smi`` reports while the full xor chain
+   (``probe_xor_chain``) runs, which every per-pipe bound below uses.
 3. ``kernel``: each kernel against its plain PyTorch version on the card:
    ``point_add``, the inner scan and Horner at the shapes each of the
    prove, verify, msm, r1cs_prove and r1cs_verify paths launches them with,
@@ -33,8 +35,15 @@ Phases, one JSON object per line on standard output:
    Times by CUDA events around 20 back-to-back calls (``kernel_ms``, host
    launch gaps included), by torch.profiler's kernel rows (``device_ms``,
    the kernel alone; for ``point_reduce`` the sum of a call's passes), and
-   of the one plain call checked (``plain_ms``).  ``point_reduce`` rows
-   carry their plan, the throughput bound and the dependency bound
+   of the one plain call checked (``plain_ms``).  Each row's bound
+   (``bound_ms``, its ``bound_share`` of ``device_ms``) is the larger of
+   the byte time (``bytes_bound_ms``: each input read and each output
+   written once at 3.35 TB/s) and the per-pipe issue time
+   (``pipe_bound_ms``: the instructions the function needs, counted from
+   the field arithmetic of ``csrc/field.cuh``, each on its pipe at
+   Hopper's issue rates and the ``clock``; ``pipe`` the one that sets
+   it).  ``point_reduce`` rows
+   carry their plan, the dependency bound
    (ceil(log2 n) adds at Horner's add latency from this run), the launches
    one call made (read from the counter), and in turns the former halving
    tree of ``point_add`` launches (``vs_halving_tree``); ``kernel_plans``
@@ -66,11 +75,20 @@ Phases, one JSON object per line on standard output:
    of it and a second proof must pass.  Launch counts around one
    verification, then the median of warm ones, split into the host terms
    and the MSM.
-6. ``msm``: ``msm_device`` at n = 2^20 on points P_i = k_i G made on the card;
+6. ``party_dealer``: the same (64, 64) proof by the party/dealer protocol
+   (``Party``, ``Dealer``; the 64 parties in order on one
+   ``pinned.det_stream()``): its digest must be the fused prover's,
+   ``verify_multiple`` on the card must accept it, ``receive_shares`` must
+   audit the honest shares and assemble the same bytes, and a share with
+   t_x + 1 must raise ``MPCError`` naming its party.  Launches of one
+   proof, the median of warm proofs (host clock), the host split of one
+   audited proof (the parties' phases, the dealer's rounds, the share
+   audits, the inner-product argument) and a ``profile``.
+7. ``msm``: ``msm_device`` at n = 2^20 on points P_i = k_i G made on the card;
    the result must equal (sum_i s_i k_i) G.  Launch counts around one MSM,
    the median of warm ones, peak memory, a device profile; then one MSM of
    8,286 points (the (64, 64) verification's width), checked the same way.
-7. ``r1cs``: the shuffle gadget at k = 2^10 (2,046 multipliers, n = 2,048)
+8. ``r1cs``: the shuffle gadget at k = 2^10 (2,046 multipliers, n = 2,048)
    on the pinned inputs: commit and gadget seconds, the cold proof and the
    median of warm ``Prover.prove`` calls, the digest of proof, commitments
    and transcript against the JAX package's (``pinned.SHUFFLE_DIGESTS``);
@@ -79,7 +97,7 @@ Phases, one JSON object per line on standard output:
    proof and one verification, one more proof split into its phase MSMs,
    its inner-product argument and the host rest, warm verifications split
    into the host terms and the MSM; a device profile of one proof.
-8. ``mpc``: the collaborative (2-party MPC) R1CS range proof over
+9. ``mpc``: the collaborative (2-party MPC) R1CS range proof over
    ``MPC_VALUES`` committed ``MPC_BITS``-bit values (n = 4,096
    multipliers), both parties as threads over the in-process link on one
    card (``MpcFabric(..., device="cuda")``): each party commits the values
@@ -98,7 +116,18 @@ Phases, one JSON object per line on standard output:
    parties' work).  ``mpc_small``: the JAX package's ``bench.py`` MPC
    configuration (the example gadget, ``BulletproofGens(16, 1)``) at a
    one-way link delay of 0 and 5 ms, median of warm proofs, verified.
-9. ``probes``: the three op-rate probes (``probe_chain``,
+10. ``mpc_tcp``: the collaborative prover's two-process deployment: the
+   integration harness (``mpc_bulletproof_tpu_torch/integration``), both
+   parties as OS processes on this card over loopback TCP, started by its
+   launcher once the kernels are built.  Every case of its registry must
+   pass in both processes; its (64, 64) range proof, proved
+   ``TCP_PROOFS`` times (1 cold), must give the pinned digest and the same
+   opened bytes in both, and each party must send the messages and bytes
+   of the ``mpc`` phase's threads; the launches summed over both
+   processes must include the point kernels and the vec2 family.  Seconds
+   per proof beside the threads' median.  A process failing or the
+   deadline (``TCP_DEADLINE_S``) passing fails the run.
+11. ``probes``: the three op-rate probes (``probe_chain``,
    ``probe_xor_chain``, ``probe_accum``), every op of their TPU benches at
    the TPU shapes: each held bit for bit to its plain version (NaN equal to
    NaN; ``probe_edges``: also the redesigned two at ``probes.EDGE_*``,
@@ -106,8 +135,7 @@ Phases, one JSON object per line on standard output:
    ``probe_accum`` at 2,048, 2,047 and 4,099 lanes and at a 4-byte
    offset), then timed at the full repetition counts.  A ``probe``
    line: ms by events and by the profiler (``device_ms``), cycles a step
-   at the SM clock ``nvidia-smi`` reports while the xor chain runs
-   (``clock_mhz_under_load``), the byte bound, the per-pipe bound
+   at the ``clock``, the byte bound, the per-pipe bound
    (``pipe_bound_ms``: the instructions a lane-step the op needs per pipe,
    ``PROBE_NEEDS``, at Hopper's issue rates, ``pipe`` the one that sets
    it), the dependency bound (dependent instructions a step on one lane's
@@ -116,17 +144,19 @@ Phases, one JSON object per line on standard output:
    ``cuobjdump -sass`` of the built library, its instructions a lane-step
    per pipe and the time they take to issue (``sass_issue_ms``;
    ``probe_sass`` lists every row whose loop issues more than it needs).
-10. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
+12. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
    ``point_reduce`` this one replaced, built from DIR (an older tree's
    ``mpc_bulletproof_tpu_torch/csrc``), against this tree's at the A bit
    sum's shape: equal as points, device times in turns (base, this, this,
    base); then one warm prove and r1cs_prove proof each profiled in the
    same turns, the base on the former route (that kernel for the A sum, the
    halving tree of ``point_add`` launches for every other sum).
-11. the ``kernels`` summary with launches per path (for the scans and
-   Horner also their ptxas registers and spills, launch configurations
-   and resident warps a scheduler), the card's ``nvidia-smi`` name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+13. the ``kernels`` summary with launches per path (``pd`` the
+   party/dealer proof, ``tcp`` both processes of ``mpc_tcp``; for the
+   scans and Horner also their ptxas registers and spills, launch
+   configurations and resident warps a scheduler), the card's
+   ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+   {...}}``.
 
 Each path asserts that the kernels it must run were launched.
 
@@ -158,6 +188,8 @@ MPC_VEC_N = 9 * MPC_BITS * MPC_VALUES  # lanes of the t-polynomial's one Beaver 
 WARM_MPC = 3
 MPC_SMALL_LATENCIES = (0.0, 0.005)  # one-way link delay of the example-gadget runs, s
 WARM_MPC_SMALL = 3
+TCP_PROOFS = 3  # collaborative range proofs of the two-process run: 1 cold, 2 warm
+TCP_DEADLINE_S = 300  # both processes killed, and the run failed, after this
 SHUFFLE_K = 1 << 10
 WARM_R1CS = 3
 SMS = 132
@@ -182,32 +214,62 @@ RAGGED_REDUCE = (3, 1000)
 ONE_LEVEL_REDUCE = (37, 2)
 MSM_SETUP_COMMITS = 1 << 17
 
-# Bounds: NVIDIA's published H100 SXM rates (data sheet, dense, 700 W):
-# 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores.  There is
-# no published integer rate outside the tensor cores; the integer
-# multiply-add issues no faster than the float32 FMA, so the float32 rate
-# gives a lower bound on the time (2 operations per 32-bit multiply-add).
-# On compute capability 9.0 an IMAD issues at half the FP32 FMA's rate, so
-# these bounds are 2x low for integer work; the probes count per pipe
-# (PIPE_RATE below).
+# Bounds.  Bytes: NVIDIA's published H100 SXM HBM rate (data sheet, 700
+# W), 3.35 TB/s.  Operations: like the probes' (PIPE_RATE below), the
+# instructions the function needs, each on the pipe it must use, at
+# Hopper's issue rates and the SM clock under load (SM_CLOCK_MHZ, measured
+# by main before the first kernel row).  Counted from the arithmetic of
+# csrc/field.cuh, not from what ptxas emitted:
+# - a Montgomery product (CIOS on 8 x 32-bit limbs), a round for each limb
+#   b_i: a b_i as 8 mad.wide.u32 (IMAD.WIDE, FMA pipe) and a carry chain of
+#   8 add.cc/addc (IADD3, ALU); the reduction for FP (m' = -1, limbs 0, 6
+#   and 7 of p nonzero) u = -t0 (a two-input subtract, "int"), 2 mad.wide
+#   and 9 carry adds, for FR u = t0 m' (one IMAD), 8 mad.wide and 8 carry
+#   adds; then the conditional subtraction: 8 subtracts with borrow, the
+#   borrow mask, 8 selects (LOP3);
+# - a sum: 8 carry adds and the conditional subtraction; a difference: 8
+#   subtracts with borrow, the mask, 8 carry adds and an AND of the mask
+#   with each modulus limb that is neither 0 nor all ones (3 for p, 6 for r);
+# - a complete point add (csrc/curve.cuh): 14 FP products, 17 sums, 6
+#   differences;
+# - a binary GCD step (csrc/mod_pow.cu): ~32 ALU operations (64-bit
+#   subtract, compare, selects and shifts of a, b and four factors); a
+#   round also ~40 to form the approximations and the updates of (a, b)
+#   and (u, v): each two 8 x 1-limb products (8 mad.wide, 8 carry adds),
+#   negations, the 9-limb adds, the shift by 31 (8 SHF) and for (u, v)
+#   the Montgomery quotient's product and the conditional subtraction.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-# Montgomery product on 8 x 32-bit limbs: 64 limb products for a b plus the
-# reduction's u m (2 a round for p, whose limbs 0, 6 and 7 are nonzero and
-# limb 0 is 1; 8 a round for r), each one 32-bit multiply-add.
-FP_MUL_OPS = 2 * (64 + 8 * 2)
-FR_MUL_OPS = 2 * (64 + 8 * 8)
-POINT_ADD_OPS = 14 * FP_MUL_OPS  # 12 products + 2 by the constant 3b
+SM_CLOCK_MHZ = None  # set by main: the SM clock under load (clock_under_load)
 POINT_BYTES = 3 * 4 * 8
-# A modular sum or difference: a 4-word add (sub) with carries and a 4-word
-# conditional subtract (add), 64-bit operations as two 32-bit ones.
-VEC_ADD_OPS = 2 * 2 * 4 * 2
-# The binary GCD inverse (csrc/mod_pow.cu), 32-bit operations a lane: a step
-# ~32 (64-bit subtract, compare, selects and shifts of a, b and four
-# factors); a round 31 steps, ~40 to form the approximations and the four
-# 8 x 1-limb products of each update pair (a, b and u, v) plus the
-# Montgomery quotient's product (8 limbs for r, 3 for p), 2 operations each.
-GCD_STEP_OPS = 32
+_REDUCE_ONCE = 8 + 1 + 8
+FP_MUL_NEEDS = {"imad": 8 * (8 + 2), "alu": 8 * (8 + 9) + _REDUCE_ONCE, "int": 8}
+FR_MUL_NEEDS = {"imad": 8 * (8 + 1 + 8), "alu": 8 * (8 + 8) + _REDUCE_ONCE}
+FE_ADD_NEEDS = {"alu": 8 + _REDUCE_ONCE}
+FP_SUB_NEEDS = {"alu": 8 + 1 + 8 + 3}
+FR_SUB_NEEDS = {"alu": 8 + 1 + 8 + 6}
+
+
+def needs(*terms) -> dict:
+    """The instructions per pipe of ``(count, needs)`` terms, summed."""
+    out: dict = {}
+    for count, per in terms:
+        for pipe, k in per.items():
+            out[pipe] = out.get(pipe, 0) + count * k
+    return out
+
+
+POINT_ADD_NEEDS = needs((14, FP_MUL_NEEDS), (17, FE_ADD_NEEDS), (6, FP_SUB_NEEDS))
+GCD_STEP_NEEDS = {"alu": 32}
+_MUL_SMALL = {"imad": 8, "alu": 8}
+_LIN_COMB = needs((2, _MUL_SMALL), (1, {"alu": 3 * 18 + 9 + 1 + 8}))     # negations, add, sign, shift
+_MONT_COMB = {"fp": needs((2, _MUL_SMALL), (1, {"imad": 2, "alu": 16 + 16 + 9 + 1 + 1 + 10 + 8 + _REDUCE_ONCE})),
+              "fr": needs((3, _MUL_SMALL), (1, {"imad": 1, "alu": 16 + 16 + 9 + 1 + 9 + 8 + _REDUCE_ONCE}))}
+
+
+def gcd_needs(fr: bool) -> dict:
+    """One lane's inverse by the binary GCD: 17 rounds of 31 steps."""
+    mont = _MONT_COMB["fr" if fr else "fp"]
+    return needs((17 * 31, GCD_STEP_NEEDS), (17, {"alu": 40}), (34, _LIN_COMB), (34, mont))
 
 
 # The probes' dependency bound: dependent instructions a chain step puts on
@@ -391,9 +453,6 @@ def sass_rows(lib: str) -> dict:
     return rows
 
 
-def gcd_ops(fr: bool) -> int:
-    return 17 * (31 * GCD_STEP_OPS + 40 + 2 * (4 * 8 * 2 + 2 * (8 if fr else 3)))
-
 REPLACES = {
     "point_add": "mpc_bulletproof_tpu/ops/kernels.py:164",
     "point_scan_steps_inner": "mpc_bulletproof_tpu/ops/kernels.py:253",
@@ -422,11 +481,21 @@ PATH_KERNELS = {
     "r1cs_verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
     "mpc": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2",
             "beaver_diff", "beaver_combine", "poly3_eval"},
+    "pd": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "mod_pow_static"},
+    "tcp": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2",
+            "beaver_diff", "beaver_combine", "poly3_eval"},
     "probes": {"probe_chain", "probe_xor_chain", "probe_accum"},
 }
 
 
+STARTED = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also gets ``t_s``, the seconds since the
+    script started (the run has a time limit)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.monotonic() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -437,9 +506,21 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+def bound(bytes_moved: float, work: dict) -> dict:
+    """The least time of a function that moves ``bytes_moved`` bytes and
+    needs ``work`` instructions per pipe (:func:`needs`): the larger of
+    the byte time and the per-pipe issue time (:func:`pipe_bound_ms` at
+    :data:`SM_CLOCK_MHZ`), which one sets it, and the pipe that sets the
+    issue time."""
+    b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    p_ms, pipe = pipe_bound_ms(1, work, SM_CLOCK_MHZ)
+    return {"bound_ms": max(b_ms, p_ms), "bound_by": "bytes" if b_ms >= p_ms else "operations",
+            "pipe": pipe, "pipe_bound_ms": p_ms, "bytes_bound_ms": b_ms}
+
+
+def share(bound_ms: float, dev_ms: float | None) -> float | None:
+    """The bound's share of a measured device time."""
+    return None if not dev_ms else bound_ms / dev_ms
 
 
 def scan_launch(L: int) -> dict:
@@ -452,10 +533,10 @@ def horner_launch(k: int) -> dict:
     return {"grid": k, "block": [32, 1], "smem_bytes": None}
 
 
-def scan_bound(T: int, L: int) -> tuple[float, str]:
+def scan_bound(T: int, L: int) -> dict:
     """A prefix scan of T steps over L lanes: each point read and written
     once, T - 1 adds a lane."""
-    return bound(2 * POINT_BYTES * T * L, (T - 1) * L * POINT_ADD_OPS)
+    return bound(2 * POINT_BYTES * T * L, needs(((T - 1) * L, POINT_ADD_NEEDS)))
 
 
 def ptxas_entries(log: str) -> dict:
@@ -616,7 +697,11 @@ def read_launches(path: str) -> dict:
     must run was not launched."""
     from mpc_bulletproof_tpu_torch.ops import kernels
 
-    launches = dict(kernels.launches)
+    return require_launches(path, dict(kernels.launches))
+
+
+def require_launches(path: str, launches: dict) -> dict:
+    """``launches``, after checking that every kernel the path must run was launched."""
     missing = sorted(k for k in PATH_KERNELS[path] if launches[k] == 0)
     if missing:
         raise RuntimeError(f"{path}: kernels of the path not launched: {missing} ({launches})")
@@ -718,7 +803,7 @@ def point_add_sweep(gpu: str, pool, gen) -> list:
                "serial": {d: serial_depth("product", ADD_PRODUCTS[d],
                                           min((t for t in dms[d] if t is not None), default=None))
                           for d in run},
-               "bound_ms": bound(3 * POINT_BYTES * lanes, lanes * POINT_ADD_OPS)[0], "gpu": gpu}
+               "bound_ms": bound(3 * POINT_BYTES * lanes, needs((lanes, POINT_ADD_NEEDS)))["bound_ms"], "gpu": gpu}
         emit(row)
         if any(errs.values()):
             raise RuntimeError(f"point_add disagrees with the plain add at {lanes} lanes: {errs}")
@@ -853,12 +938,11 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         got = fn(*args)
         torch.cuda.synchronize()
         want, plain_ms = timed_ms(plain)
-        bound_ms, bound_by = bnd
         res = {"phase": "kernel", "name": name, "path": path, "shape": shape, "tolerance": 0,
                "equal": bool(torch.equal(got, want)), "max_abs_err": max_abs_err(got, want, word_dim),
                "kernel_ms": cuda_ms(lambda: fn(*args), 20), "device_ms": device_ms(lambda: fn(*args), 20),
-               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, **(extra or {}),
-               "gpu": gpu}
+               "plain_ms": plain_ms, **bnd, **(extra or {}), "gpu": gpu}
+        res["bound_share"] = share(res["bound_ms"], res["device_ms"])
         if launch is not None:
             res["launch"] = launch
         if serial is not None:
@@ -873,7 +957,7 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         a, b = a.reshape(3, NW, aw, an).contiguous(), b.reshape(3, NW, aw, an).contiguous()
         design = kernels.point_add_design(aw * an)
         check("point_add", path, (a, b), kernels.point_add, lambda: curve_t._point_add(a, b),
-              bound(3 * POINT_BYTES * aw * an, aw * an * POINT_ADD_OPS), {"W": aw, "lanes": an},
+              bound(3 * POINT_BYTES * aw * an, needs((aw * an, POINT_ADD_NEEDS))), {"W": aw, "lanes": an},
               extra={"design": design}, serial=("product", ADD_PRODUCTS[design]))
         del a, b
         T, L = sh["T"], sh["W"] * sh["nt"]
@@ -887,7 +971,7 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         horner_w = random_points(pool, nw * k, gen).reshape(3, NW, nw, k).permute(2, 0, 1, 3).contiguous()
         check("point_horner_multi", path, (horner_w, c), kernels.point_horner_multi,
               lambda: kernels.point_horner_plain(horner_w, c),
-              bound(POINT_BYTES * (nw * k + k), (nw - 1) * (c + 1) * k * POINT_ADD_OPS),
+              bound(POINT_BYTES * (nw * k + k), needs(((nw - 1) * (c + 1) * k, POINT_ADD_NEEDS))),
               {"nw": nw, "c": c, "k": k}, launch=horner_launch(k),
               serial=("product", (nw - 1) * (c + 1) * ADD_PRODUCTS["narrow"]))
         torch.cuda.empty_cache()
@@ -953,9 +1037,9 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
     def pow_cost(k, mp, e):
         """(bound, serial depth) of k lanes of x^e."""
         if kernels.is_inverse(e, mp):
-            return bound(2 * 32 * k, k * gcd_ops(mp is FR)), ("gcd_step", GCD_STEPS)
-        ops = k * ladder_products(e) * (FP_MUL_OPS if mp is FP else FR_MUL_OPS)
-        return bound(2 * 32 * k, ops), ("product", ladder_products(e))
+            return bound(2 * 32 * k, needs((k, gcd_needs(mp is FR)))), ("gcd_step", GCD_STEPS)
+        work = needs((k * ladder_products(e), FP_MUL_NEEDS if mp is FP else FR_MUL_NEEDS))
+        return bound(2 * 32 * k, work), ("product", ladder_products(e))
 
     inverse_cases = []
     for path, cases in pow_paths.items():
@@ -969,7 +1053,7 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
             if kernels.is_inverse(e, mp) and path != "none":
                 inverse_cases.append((path, x, mp, e))
         x0, mp0, e0 = pow_inputs[0]
-        (bound_ms, bound_by), serial = pow_cost(x0.shape[-1], mp0, e0)
+        bnd, serial = pow_cost(x0.shape[-1], mp0, e0)
         dms = device_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20)
         res = {"phase": "kernel", "name": "mod_pow_static", "path": path,
                "shape": [{"n": k, "field": "FP" if mp is FP else "FR",
@@ -978,7 +1062,7 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
                "kernel_ms": cuda_ms(lambda: kernels.mod_pow_static(x0, e0, mp0), 20),
                "device_ms": dms,
                "plain_ms": timed_ms(lambda: kernels.mod_pow_plain(x0, e0, mp0))[1],
-               "bound_ms": bound_ms, "bound_by": bound_by, "serial": serial_depth(*serial, dms),
+               **bnd, "bound_share": share(bnd["bound_ms"], dms), "serial": serial_depth(*serial, dms),
                "gpu": gpu}
         emit(res)
         rows.setdefault("mod_pow_static", {})[path] = res
@@ -993,7 +1077,8 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         results[name] = {**first, "equal": all(r["equal"] for r in by_path.values()),
                          "max_abs_err": max(r["max_abs_err"] for r in by_path.values()),
                          "at_paths": {p: {k: r[k] for k in ("shape", "max_abs_err", "kernel_ms", "device_ms",
-                                                            "plain_ms", "bound_ms", "bound_by", "launch",
+                                                            "plain_ms", "bound_ms", "bound_by", "pipe",
+                                                            "pipe_bound_ms", "bytes_bound_ms", "bound_share", "launch",
                                                             "design", "serial", "plan", "launches_per_call",
                                                             "dependency_bound_ms", "vs_halving_tree")
                                           if k in r}
@@ -1049,14 +1134,15 @@ def reduce_row(gpu: str, path: str, S: int, n: int, pool, gen, add_ms: float) ->
     want, plain_ms = timed_ms(lambda: kernels.point_reduce_plain(x))
     run = lambda: kernels.point_reduce(x)
     recorded: dict = {}
-    bound_ms, bound_by = bound(POINT_BYTES * (S * n + S), S * (n - 1) * POINT_ADD_OPS)
+    bnd = bound(POINT_BYTES * (S * n + S), needs((S * (n - 1), POINT_ADD_NEEDS)))
     res = {"phase": "kernel", "name": "point_reduce", "path": path, "shape": {"S": S, "n": n},
            "tolerance": 0, "equal": bool(torch.equal(got, want)), "max_abs_err": max_abs_err(got, want, 1),
            "plan": plan, "launches_per_call": launches, "kernel_ms": cuda_ms(run, 20),
            "device_ms": device_ms(run, 20, True, recorded), "device_launches_recorded": recorded[""] / 20,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "plain_ms": plain_ms, **bnd,
            "dependency_bound_ms": math.ceil(math.log2(n)) * add_ms if n > 1 else 0.0,
            "add_latency_ms": add_ms, "gpu": gpu}
+    res["bound_share"] = share(bnd["bound_ms"], res["device_ms"])
     if S * n < 1 << 20:
         if not affine_equal(halving_tree(x), got):
             raise RuntimeError(f"point_reduce and the halving tree disagree as points at {path}")
@@ -1121,9 +1207,9 @@ def check_vec_ops(gpu: str, scalars) -> dict:
         (a, b), (fa, fb) = pair(n, FR), pair(n, FP)
         b1 = b[:, 2:3].contiguous()                          # r - 1, broadcast
         rows = {}
-        for op, fn, plain, ops in (("mul", kernels.vec_mul, limb.mod_mul, FR_MUL_OPS),
-                                   ("add", kernels.vec_add, limb.mod_add, VEC_ADD_OPS),
-                                   ("sub", kernels.vec_sub, limb.mod_sub, VEC_ADD_OPS)):
+        for op, fn, plain, per_lane in (("mul", kernels.vec_mul, limb.mod_mul, FR_MUL_NEEDS),
+                                        ("add", kernels.vec_add, limb.mod_add, FE_ADD_NEEDS),
+                                        ("sub", kernels.vec_sub, limb.mod_sub, FR_SUB_NEEDS)):
             errs, equal = [], True
             for x, y, mp in ((a, b, FR), (a, b1, FR), (fa, fb, FP)):
                 got = fn(x, y, mp)
@@ -1131,25 +1217,26 @@ def check_vec_ops(gpu: str, scalars) -> dict:
                 want = plain(x, y, mp)
                 equal &= bool(torch.equal(got, want))
                 errs.append(max_abs_err(got, want, 0))
-            bound_ms, bound_by = bound(3 * NW * 8 * n, ops * n)
+            bnd = bound(3 * NW * 8 * n, needs((n, per_lane)))
             rows[op] = {"phase": "kernel", "name": f"vec_{op}", "path": path,
                         "shape": [{"n": n, "field": "FR"}, {"n": n, "b": 1, "field": "FR"},
                                   {"n": n, "field": "FP"}],
                         "tolerance": 0, "equal": equal, "max_abs_err": max(errs),
                         "kernel_ms": cuda_ms(lambda: fn(a, b, FR), 20),
                         "device_ms": device_ms(lambda: fn(a, b, FR), 20),
-                        "plain_ms": timed_ms(lambda: plain(a, b, FR))[1],
-                        "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
+                        "plain_ms": timed_ms(lambda: plain(a, b, FR))[1], **bnd, "gpu": gpu}
+            rows[op]["bound_share"] = share(bnd["bound_ms"], rows[op]["device_ms"])
             if op == "mul":     # one product a lane: b R made once a block
-                pb_ms, pb_by = bound(NW * 8 * (2 * n + 1), FR_MUL_OPS * (n + 1))
+                pb = bound(NW * 8 * (2 * n + 1), needs((n + 1, FR_MUL_NEEDS)))
                 rows[op]["public_b"] = {"shape": {"n": n, "b": 1, "field": "FR"},
                                         "kernel_ms": cuda_ms(lambda: fn(a, b1, FR), 20),
                                         "device_ms": device_ms(lambda: fn(a, b1, FR), 20),
-                                        "plain_ms": timed_ms(lambda: plain(a, b1, FR))[1],
-                                        "bound_ms": pb_ms, "bound_by": pb_by}
+                                        "plain_ms": timed_ms(lambda: plain(a, b1, FR))[1], **pb}
             emit(rows[op])
         at_paths[path] = {f"vec_{op}": {k: r[k] for k in ("shape", "max_abs_err", "kernel_ms", "device_ms",
-                                                           "plain_ms", "bound_ms", "bound_by", "public_b")
+                                                           "plain_ms", "bound_ms", "bound_by", "pipe",
+                                                           "pipe_bound_ms", "bytes_bound_ms", "bound_share",
+                                                           "public_b")
                                         if k in r}
                           for op, r in rows.items()}
         at_paths[path]["equal"] = all(r["equal"] for r in rows.values())
@@ -1241,17 +1328,17 @@ def check_share_plane(gpu: str, scalars) -> dict:
     cases = {
         "beaver_diff": ([(x, y, triple)], kernels.beaver_diff, kernels.beaver_diff_plain,
                         [{"k": k, "lanes_out": 2 * k}],
-                        bound(6 * k * NW * 8, 2 * k * VEC_ADD_OPS)),
+                        bound(6 * k * NW * 8, needs((2 * k, FR_SUB_NEEDS)))),
         "beaver_combine": ([(de, triple, al, p) for p in (0, 1) for al in alphas[::-1]], kernels.beaver_combine,
                            kernels.beaver_combine_plain,
                            [{"k": k, "party": p, "alpha": a} for p in (0, 1) for a in ("random", "r-1", "0")],
-                           bound(10 * k * NW * 8, k * (8 * FR_MUL_OPS + 7 * VEC_ADD_OPS))),
+                           bound(10 * k * NW * 8, needs((8 * k, FR_MUL_NEEDS), (6 * k, FE_ADD_NEEDS)))),
         "poly3_eval": ([(coeffs, xv) for xv in xs], kernels.poly3_eval, kernels.poly3_eval_plain,
                        [{"k": ke, "x": v} for v in ("0", "1", "r-1", "random")],
-                       bound(10 * ke * NW * 8, 2 * ke * 3 * (FR_MUL_OPS + VEC_ADD_OPS))),
+                       bound(10 * ke * NW * 8, needs((6 * ke, FR_MUL_NEEDS), (6 * ke, FE_ADD_NEEDS)))),
     }
     out = {}
-    for name, (argsets, fn, plain, shape, (bound_ms, bound_by)) in cases.items():
+    for name, (argsets, fn, plain, shape, bnd) in cases.items():
         errs, equal = [], True
         for args in argsets:
             got = fn(*args)
@@ -1263,8 +1350,8 @@ def check_share_plane(gpu: str, scalars) -> dict:
         row = {"phase": "kernel", "name": name, "path": "mpc", "shape": shape, "tolerance": 0,
                "equal": equal, "max_abs_err": max(errs),
                "kernel_ms": cuda_ms(lambda: fn(*args), 20), "device_ms": device_ms(lambda: fn(*args), 20),
-               "plain_ms": timed_ms(lambda: plain(*args))[1], "bound_ms": bound_ms, "bound_by": bound_by,
-               "gpu": gpu}
+               "plain_ms": timed_ms(lambda: plain(*args))[1], **bnd, "gpu": gpu}
+        row["bound_share"] = share(bnd["bound_ms"], row["device_ms"])
         emit(row)
         out[name] = row
 
@@ -1864,6 +1951,195 @@ def mpc_phase(gpu: str, dev, n_bits: int = MPC_BITS, m_values: int = MPC_VALUES)
     return res
 
 
+def party_dealer_phase(gpu: str, dev, mp: dict, n_bits: int = N_BITS, m_parties: int = M_PARTIES) -> dict:
+    """The (n, m) range proof by the party/dealer protocol on the card:
+    ``Party``/``Dealer`` on the main path's generators and pinned inputs,
+    the m parties in order on one ``pinned.det_stream()``.  The digest of
+    proof, commitments and transcript must be the fused prover's
+    (``pinned.DIGESTS``); ``verify_multiple`` on the card accepts the
+    proof; ``receive_shares`` audits the honest shares and assembles the
+    same bytes; one party's share with t_x + 1 raises ``MPCError`` naming
+    that party.  Launches of one proof, the median of warm proofs (host
+    clock), the host split of one audited proof (the parties' three
+    phases, the dealer's two challenge rounds, the share audits, the
+    inner-product argument and the rest of the assembly, each part ended
+    by a synchronize) and a device profile."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch import HashChainTranscript, Scalar, pinned
+    from mpc_bulletproof_tpu_torch.models.inner_product import InnerProductProof
+    from mpc_bulletproof_tpu_torch.models.range_proof import Dealer, Party
+    from mpc_bulletproof_tpu_torch.models.range_proof.dealer import DealerAwaitingProofShares
+    from mpc_bulletproof_tpu_torch.ops import kernels
+    from mpc_bulletproof_tpu_torch.utils.errors import MPCError
+
+    bp_gens, pc_gens = mp["bp_gens"], mp["pc_gens"]
+    values, blindings = pinned.inputs(n_bits, m_parties)
+    want = pinned.DIGESTS[(n_bits, m_parties)]
+    spent: dict = {}
+
+    def timed(part, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        spent[part] = spent.get(part, 0.0) + time.perf_counter() - t0
+        return out
+
+    def prove(audit=False, corrupt=None):
+        tr = HashChainTranscript(pinned.TRANSCRIPT_LABEL)
+        rng_bytes = pinned.det_stream()
+        dealer = Dealer.new(bp_gens, pc_gens, tr, n_bits, m_parties, device=dev)
+        parties = [Party.new(bp_gens, pc_gens, v, b, n_bits, device=dev) for v, b in zip(values, blindings)]
+        positioned, bit_comms = zip(*timed("parties_position", lambda: [
+            p.assign_position(j, rng_bytes=rng_bytes) for j, p in enumerate(parties)]))
+        dealer, bit_ch = timed("dealer_bit_round", lambda: dealer.receive_bit_commitments(list(bit_comms)))
+        polied, poly_comms = zip(*timed("parties_bit_challenge", lambda: [
+            p.apply_challenge(bit_ch) for p in positioned]))
+        dealer, poly_ch = timed("dealer_poly_round", lambda: dealer.receive_poly_commitments(list(poly_comms)))
+        shares = timed("parties_poly_challenge", lambda: [p.apply_challenge(poly_ch) for p in polied])
+        named = None
+        if corrupt is not None:     # a tampered copy first: its audit raises before the transcript moves
+            bad = copy.deepcopy(shares)
+            corrupt(bad)
+            try:
+                dealer.receive_shares(bad)
+            except MPCError as exc:
+                if f"[{bad_party}]" not in str(exc):
+                    raise RuntimeError(f"the audit named other parties: {exc}") from exc
+                named = str(exc)
+            else:
+                raise RuntimeError("the dealer accepted a tampered proof share")
+        proof = timed("assembly", lambda: dealer.receive_shares(shares) if audit
+                      else dealer.receive_trusted_shares(shares))
+        V = [bc.V_j for bc in bit_comms]
+        digest = pinned.proof_digest(proof, V, tr.state)
+        if digest != want:
+            raise RuntimeError(f"party/dealer proof digest {digest} != pinned {want}")
+        return proof, V, named
+
+    bad_party = min(5, m_parties - 1)
+
+    def corrupt(shares):
+        shares[bad_party].t_x = shares[bad_party].t_x + Scalar(1)
+
+    t0 = time.perf_counter()
+    proof, V, named = prove(corrupt=corrupt)
+    first_s = time.perf_counter() - t0
+    proof.verify_multiple(bp_gens, pc_gens, HashChainTranscript(pinned.TRANSCRIPT_LABEL), V, n_bits, device=dev)
+
+    warm = []
+    for _ in range(WARM_PROOFS):
+        t0 = time.perf_counter()
+        prove()
+        warm.append(time.perf_counter() - t0)
+    warm_us = statistics.median(warm) * 1e6
+    prof = profile_run(prove, warm_us, gpu, "party_dealer")
+    launches = read_launches("pd")              # the profiled proof's: profile_run resets the counters
+
+    # one audited proof, split: the audits and the IPP timed inside the assembly
+    orig_valid = DealerAwaitingProofShares.__dict__["_share_is_valid"]
+    orig_create = InnerProductProof.__dict__["create"]
+    DealerAwaitingProofShares._share_is_valid = lambda self, j, ps: timed(
+        "share_audits", lambda: orig_valid(self, j, ps))
+    InnerProductProof.create = staticmethod(lambda *a, **kw: timed("ipp", lambda: orig_create.__func__(*a, **kw)))
+    try:
+        spent.clear()
+        t0 = time.perf_counter()
+        audited, _, _ = prove(audit=True)
+        total = time.perf_counter() - t0
+    finally:
+        DealerAwaitingProofShares._share_is_valid = orig_valid
+        InnerProductProof.create = orig_create
+    if audited.to_bytes() != proof.to_bytes():
+        raise RuntimeError("the audited shares assembled other bytes")
+    inner = ("share_audits", "ipp")                                # inside the assembly
+    split = {"total": total, **spent, "assembly_rest": spent["assembly"] - sum(spent[k] for k in inner),
+             "rest": total - sum(v for k, v in spent.items() if k not in inner)}
+    del split["assembly"]
+
+    res = {"phase": "party_dealer", "n": n_bits, "m": m_parties, "digest": want, "digest_equal": True,
+           "verified_on_card": True, "audited_bytes_equal": True,
+           "tampered_share": {"party": bad_party, "raised": named},
+           "first_prove_s": first_s, "warm_prove_s": warm, "us_per_proof_median": warm_us,
+           "fused_us_per_proof_median": mp["us_per_proof_median"], "host_split_s": split,
+           "launches": launches, "gpu": gpu}
+    emit(res)
+    emit(prof)
+    return res
+
+
+def mpc_tcp_phase(gpu: str, dev, mc: dict, n_bits: int = MPC_BITS, m_values: int = MPC_VALUES) -> dict:
+    """The collaborative prover's two-process deployment on the card: the
+    integration harness (``mpc_bulletproof_tpu_torch/integration``), both
+    parties as OS processes on this card over loopback TCP, started by its
+    launcher after the kernels are built here (each process then loads
+    them).  Every case of its registry must pass in both; the (n, m)
+    collaborative range proof, proved ``TCP_PROOFS`` times (the first
+    cold), must give ``pinned.MPC_RANGE_DIGESTS`` and the same opened bytes
+    in both parties, and each party must send per proof the messages and
+    bytes it sent with the parties as threads (``mc``, the mpc phase);
+    the launches summed over both processes must include the point
+    kernels and the vec2 family; ``mpc_prover_malleability`` passes only
+    where the tampered opening raised ``AuthenticationError``.  Either
+    process failing, or the deadline passing, fails the run."""
+    from mpc_bulletproof_tpu_torch import pinned
+    from mpc_bulletproof_tpu_torch.integration import launch
+    from mpc_bulletproof_tpu_torch.integration.main import CASES
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    kernels.build()
+    args = ["--device", dev.type, "--bits", str(n_bits), "--values", str(m_values), "--proofs", str(TCP_PROOFS)]
+    run = launch.run_pair(args, deadline_s=TCP_DEADLINE_S)
+    tail = lambda i: run["stderr"][i][-3000:]
+    if run["timed_out"]:
+        raise RuntimeError(f"mpc_tcp: the deadline of {TCP_DEADLINE_S} s passed: {tail(0)} {tail(1)}")
+    if run["rcs"] != [0, 0] or None in run["reports"]:
+        raise RuntimeError(f"mpc_tcp: exit codes {run['rcs']}: {run['stdout'][0][-3000:]} {tail(0)} {tail(1)}")
+    reports = run["reports"]
+    for rep in reports:
+        if [c["name"] for c in rep["cases"]] != sorted(CASES) or not all(c["ok"] for c in rep["cases"]):
+            raise RuntimeError(f"mpc_tcp: party {rep['party']}: {[c for c in rep['cases'] if not c['ok']]}")
+        if rep["jax_modules"]:
+            raise RuntimeError(f"mpc_tcp: party {rep['party']} loaded {rep['jax_modules']}")
+    opened = [{c["name"]: c["opened_sha256"] for c in rep["cases"]} for rep in reports]
+    if opened[0] != opened[1]:
+        raise RuntimeError("mpc_tcp: the parties opened different proofs")
+    ranges = [next(c for c in rep["cases"] if c["name"] == "mpc_range_proof") for rep in reports]
+    want = pinned.MPC_RANGE_DIGESTS[(n_bits, m_values)]
+    threads_link = mc["link_per_party"]
+    for party, row in enumerate(ranges):
+        if row["detail"]["digest"] != want:
+            raise RuntimeError(f"mpc_tcp: party {party}'s digest {row['detail']['digest']} != pinned {want}")
+        for proof in row["detail"]["proofs"]:
+            got = {"messages": proof["sent_messages"], "bytes": proof["sent_bytes"]}
+            if got != threads_link[party]:
+                raise RuntimeError(f"mpc_tcp: party {party} sent {got} a proof, the threads {threads_link[party]}")
+    launches = {name: sum(c["launches"].get(name, 0) for rep in reports for c in rep["cases"])
+                for name in kernels.KERNELS}
+    require_launches("tcp", launches)
+    per_proof = [[p["seconds"] for p in row["detail"]["proofs"]] for row in ranges]
+    both = [max(a, b) for a, b in zip(*per_proof)]           # a proof ends when both parties have opened it
+    res = {"phase": "mpc_tcp", "n_bits": n_bits, "values": m_values, "processes": 2, "link": "tcp loopback",
+           "cases": {c["name"]: {"ok": True, "seconds": [r["cases"][i]["seconds"] for r in reports],
+                                 "sent_messages": [r["cases"][i]["sent_messages"] for r in reports],
+                                 "opened_sha256": c["opened_sha256"]}
+                     for i, c in enumerate(reports[0]["cases"])},
+           "digest": want, "digest_equal": True, "opened_equal": True, "link_per_party_per_proof":
+               [{"messages": r["detail"]["proofs"][0]["sent_messages"], "bytes": r["detail"]["proofs"][0]["sent_bytes"]}
+                for r in ranges],
+           "link_equal_to_threads": True, "setup_s": [r["setup_s"] for r in reports],
+           "proof_s_per_party": per_proof, "proof_s": both, "cold_proof_s": both[0],
+           "warm_proof_s": both[1:], "us_per_warm_proof_median": statistics.median(both[1:]) * 1e6,
+           "threads_us_per_proof_median": mc["us_per_proof_median"],
+           "launches_per_proof_both_parties": {k: sum(r["detail"]["proofs"][-1]["launches"].get(k, 0)
+                                                      for r in ranges) for k in kernels.KERNELS},
+           "launches": launches, "vec2_family_launches": sum(launches[k] for k in VEC2_FAMILY),
+           "harness_s": run["seconds"], "gpu": gpu}
+    emit(res)
+    return res
+
+
 def prove_split(run) -> dict:
     """One more proof by ``run()``, its host-clock time split into the phase
     MSMs (``backend.gens_msm``), the inner-product argument
@@ -1938,6 +2214,16 @@ def clock_under_load(fn, launches: int = 300, samples: int = 3) -> float:
         got.append(float(out.stdout.strip().splitlines()[0]))
     torch.cuda.synchronize()
     return statistics.median(got)
+
+
+def measure_clock(dev) -> float:
+    """The SM clock under load that every per-pipe bound uses: the clock
+    ``nvidia-smi`` reports while the full xor chain (``probe_xor_chain``,
+    i32_mul) runs."""
+    from mpc_bulletproof_tpu_torch.ops import probes
+
+    xor_a = probe_inputs(dev)["xor"][probes.op_dtype("i32_mul")]
+    return clock_under_load(lambda: probes.probe_xor_chain("i32_mul", *xor_a, probes.XOR_REPS[1]))
 
 
 def probe_err(got, want) -> float:
@@ -2039,8 +2325,7 @@ def probes_phase(gpu: str, dev) -> dict:
             for name, (key, ops, _, fn, _, full, _) in specs.items() for i, op in enumerate(ops)]
     recorded: dict = {}
     dev_ms = device_ms_by_name(runs, 20, recorded)
-    xor_a = args("xor", "i32_mul")
-    clock_mhz = clock_under_load(lambda: probes.probe_xor_chain("i32_mul", *xor_a, xor_hi))
+    clock_mhz = SM_CLOCK_MHZ
     summary = {}
     for name, (key, ops, per_step, fn, plain, full, _) in specs.items():
         for i, op in enumerate(ops):
@@ -2105,7 +2390,6 @@ def profile_run(fn, warm_us: float, gpu: str, what: str, extra: dict | None = No
     baseline; the count is read after the run).  The profiler slows the host, so the idle share is also
     given against the unprofiled median time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mpc_bulletproof_tpu_torch.ops import kernels
@@ -2119,10 +2403,7 @@ def profile_run(fn, warm_us: float, gpu: str, what: str, extra: dict | None = No
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     counted = dict(kernels.launches)
-    # device rows only: an aten op's self device time repeats its kernels'
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
-                  reverse=True)
+    rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     source_of = {**kernel_functions(), **{f: label for f, (label, _) in extra.items()}}
     by_source = {src: {"device_us": 0.0, "recorded": 0, "counted": 0} for src in set(source_of.values())}
@@ -2147,6 +2428,24 @@ def profile_run(fn, warm_us: float, gpu: str, what: str, extra: dict | None = No
             "top": [{"name": k[:80], "device_us": us, "count": n} for us, k, n in rows[:25]],
             "port_kernels": port, "by_source": by_source,
             "counts_match": all(v["recorded"] == v["counted"] for v in by_source.values()), "gpu": gpu}
+
+
+def device_rows(prof) -> list:
+    """``(device µs, name, launches)`` per name of a finished profiler
+    session's device activity (kernels, copies, sets), largest first,
+    summed from the raw trace (``kineto_results``): the profiler's own
+    aggregation (``key_averages``) first builds an event tree of every CPU
+    op, ~0.1 ms an event, over a minute for a proof of 10^5 launches."""
+    from torch.autograd import DeviceType
+
+    agg: dict = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.is_user_annotation():
+            continue
+        row = agg.setdefault(ev.name(), [0.0, 0])
+        row[0] += ev.duration_ns() / 1e3
+        row[1] += 1
+    return sorted(((us, name, n) for name, (us, n) in agg.items() if us > 0), reverse=True)
 
 
 def kernel_functions() -> dict:
@@ -2291,7 +2590,8 @@ def kernel_summary(checks: dict, paths: dict, ptxas: dict) -> list:
         for extra in ("ops", "at_paths", "op", "fill_share", "launch", "design", "serial", "sweep",
                       "gcd_vs_ladder", "plan", "launches_per_call", "dependency_bound_ms", "plans_check",
                       "public_b", "vs_composed", "clock_mhz_under_load", "pipe", "pipe_bound_ms",
-                      "bound_share", "dependency_share", "cycles_per_step", "sass_over_need"):
+                      "bytes_bound_ms", "bound_share", "dependency_share", "cycles_per_step",
+                      "sass_over_need"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "point_reduce":   # the fold and every tree depth
@@ -2335,19 +2635,25 @@ def main() -> int:
     entries = {name: ptxas_entries(log) for name, (_, log) in report.items()}
 
     dev = torch.device("cuda")
+    global SM_CLOCK_MHZ
+    SM_CLOCK_MHZ = measure_clock(dev)
+    emit({"phase": "clock", "sm_clock_mhz_under_load": SM_CLOCK_MHZ, "gpu": gpu})
     checks = check_kernels(gpu, dev)
     mp = main_path(gpu, dev)
     vf = verify_phase(gpu, dev, mp)
+    pd = party_dealer_phase(gpu, dev, mp)
     ms = msm_phase(gpu, dev)
     rc = r1cs_phase(gpu, dev)
     mc = mpc_phase(gpu, dev)
+    tcp = mpc_tcp_phase(gpu, dev, mc)
     pr = probes_phase(gpu, dev)
     checks.update(pr["checks"])
     if args.ab:
         ab_phase(gpu, dev, args.ab, {"prove": mp["proof_run"], "r1cs_prove": rc["proof_run"]})
 
     paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"],
-             **rc["launches"], "mpc": mc["launches"], "probes": pr["launches"]}
+             **rc["launches"], "mpc": mc["launches"], "pd": pd["launches"], "tcp": tcp["launches"],
+             "probes": pr["launches"]}
     summary = kernel_summary(checks, paths, entries)
     emit({"kernels": summary})
     print(smi_line(), flush=True)

@@ -1,6 +1,8 @@
 """Aggregated 64-bit range proofs: the proof type, its codec, the prover
 entry points, which run the whole protocol on the card
-(:mod:`.fused_device`), and the verifiers.
+(:mod:`.fused_device`), the verifiers, and the party/dealer protocol
+(:mod:`.party`, :mod:`.dealer`, :mod:`.messages`) for an aggregation whose
+m values are held by m parties and assembled by a dealer.
 
 Verification replays the transcript and derives the scalars on the host
 (:meth:`RangeProof._verification_terms`), then checks one MSM over
@@ -27,6 +29,15 @@ from ...transcript import HashChainTranscript
 from ...utils.device import resolve_device
 from ...utils.errors import FormatError, VerificationError
 from ..inner_product import InnerProductProof
+from .dealer import Dealer  # noqa: F401
+from .messages import (  # noqa: F401
+    BitChallenge,
+    BitCommitment,
+    PolyChallenge,
+    PolyCommitment,
+    ProofShare,
+)
+from .party import Party  # noqa: F401
 
 
 @dataclass

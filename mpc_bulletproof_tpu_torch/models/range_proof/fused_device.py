@@ -215,7 +215,7 @@ def prove_multiple_device(
 
     from .dealer import Dealer
 
-    Dealer.new(bp_gens, pc_gens, transcript, n, m)
+    Dealer.new(bp_gens, pc_gens, transcript, n, m, device=device)
     if nm < 2:
         raise MPCError("the fused prover needs n * m >= 2")
     if any(not 0 <= int(v) < (1 << n) for v in values):

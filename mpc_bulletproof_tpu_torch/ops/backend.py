@@ -39,10 +39,11 @@ def dispatch_msm(scalars, points, *, device="cuda") -> StarkPoint:
     return StarkPoint.msm(scalars, points)
 
 
-def gens_msm(bp_gens, scalars, lead, n: int, m: int = 1, *, lo: int = 0, with_h: bool = True,
-             device="cuda") -> StarkPoint:
-    """``sum scalars * (lead + G(n, m)[lo:] + H(n, m)[lo:])`` over the
-    aggregated generators of ``bp_gens`` (H only ``with_h``).  Below
+def gens_msm(bp_gens, scalars, lead, n: int, m: int = 1, *, lo: int = 0, hi: int | None = None,
+             with_h: bool = True, device="cuda") -> StarkPoint:
+    """``sum scalars * (lead + G(n, m)[lo:hi] + H(n, m)[lo:hi])`` over the
+    aggregated generators of ``bp_gens`` (H only ``with_h``; party j's
+    vectors are ``lo = j n``, ``hi = (j + 1) n``).  Below
     :data:`_DEVICE_MIN` points the host Pippenger over the host generators,
     the card untouched; else the ``lead`` host points go to ``device`` once
     and meet the cached generator tensor (:func:`..generators.device_gens`)."""
@@ -51,10 +52,10 @@ def gens_msm(bp_gens, scalars, lead, n: int, m: int = 1, *, lo: int = 0, with_h:
 
     dev = resolve_device(device)
     if len(scalars) < _DEVICE_MIN:
-        pts = list(lead) + bp_gens.G(n, m)[lo:] + (bp_gens.H(n, m)[lo:] if with_h else [])
+        pts = list(lead) + bp_gens.G(n, m)[lo:hi] + (bp_gens.H(n, m)[lo:hi] if with_h else [])
         return dispatch_msm(scalars, pts, device=dev)
     G, H = generators.device_gens(bp_gens, n, m, dev)
-    parts = [torch.as_tensor(curve_t.points_from_host(lead), device=dev), G[..., lo:]]
+    parts = [torch.as_tensor(curve_t.points_from_host(lead), device=dev), G[..., lo:hi]]
     if with_h:
-        parts.append(H[..., lo:])
+        parts.append(H[..., lo:hi])
     return dispatch_msm(scalars, torch.cat(parts, dim=-1), device=dev)

@@ -115,12 +115,17 @@ def make_local_pair(latency_s: float = 0.0) -> tuple[LocalTwoPartyNet, LocalTwoP
 
 class TcpTwoPartyNet(TwoPartyNetwork):
     """Length-prefixed TCP transport: party 0 listens on ``local_addr``,
-    party 1 dials ``peer_addr``."""
+    party 1 dials ``peer_addr``.  Once connected, a receive (or a send the
+    peer does not drain) that waits longer than ``recv_timeout`` seconds
+    raises :class:`NetworkError`, as :class:`LocalTwoPartyNet`'s queues do:
+    a peer that died or hangs ends this party's run instead of blocking it."""
 
-    def __init__(self, party_id: int, local_addr: tuple[str, int], peer_addr: tuple[str, int]):
+    def __init__(self, party_id: int, local_addr: tuple[str, int], peer_addr: tuple[str, int],
+                 recv_timeout: float = 60.0):
         self.party_id = party_id
         self.local_addr = local_addr
         self.peer_addr = peer_addr
+        self.recv_timeout = recv_timeout
         self._sock: socket.socket | None = None
 
     def connect(self, timeout: float = 30.0) -> None:
@@ -146,7 +151,7 @@ class TcpTwoPartyNet(TwoPartyNetwork):
                         time.sleep(0.1)
                 if self._sock is None:
                     raise SetupFailedError(f"could not reach peer: {last_err}")
-            self._sock.settimeout(None)
+            self._sock.settimeout(self.recv_timeout)
             self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         except OSError as exc:
             raise SetupFailedError(str(exc)) from exc
@@ -166,6 +171,8 @@ class TcpTwoPartyNet(TwoPartyNetwork):
         try:
             (length,) = struct.unpack(">I", self._recv_exact(4))
             return self._recv_exact(length)
+        except socket.timeout as exc:
+            raise NetworkError(f"timed out after {self.recv_timeout} s waiting for the peer") from exc
         except OSError as exc:
             raise NetworkError(str(exc)) from exc
 

@@ -779,6 +779,44 @@ def test_probe_pipe_table_has_every_op(chip_smoke, name, op):
                                                 "probe_accum": 4 * probes.ACCUM_STEPS}[name]
 
 
+@pytest.mark.parametrize("name,want", [
+    # a CIOS product on 8 x 32-bit limbs: 8 rounds of 8 mad.wide and an 8-add carry chain, the
+    # reduction (FP: u = -t0, 2 mad.wide, 9 carry adds; FR: u = t0 m', 8 mad.wide, 8 carry adds),
+    # then 8 subtracts with borrow, the mask and 8 selects
+    ("FP_MUL_NEEDS", {"imad": 80, "alu": 153, "int": 8}),
+    ("FR_MUL_NEEDS", {"imad": 136, "alu": 145}),
+    ("FE_ADD_NEEDS", {"alu": 25}),
+    ("FP_SUB_NEEDS", {"alu": 20}),
+    ("FR_SUB_NEEDS", {"alu": 23}),
+    # 14 FP products, 17 sums and 6 differences
+    ("POINT_ADD_NEEDS", {"imad": 14 * 80, "alu": 14 * 153 + 17 * 25 + 6 * 20, "int": 14 * 8}),
+], ids=["fp_mul", "fr_mul", "add", "fp_sub", "fr_sub", "point_add"])
+def test_kernel_row_needs(chip_smoke, name, want):
+    assert getattr(chip_smoke, name) == want
+
+
+def test_kernel_row_bound_per_pipe(chip_smoke, monkeypatch):
+    """A kernel row's bound: the larger of the byte time and the per-pipe
+    issue time at the clock under load; a point add is ALU-bound, a
+    modular sum over 36,864 lanes bytes-bound."""
+    monkeypatch.setattr(chip_smoke, "SM_CLOCK_MHZ", 1980.0)
+    lanes = 16 * 1024
+    row = chip_smoke.bound(3 * chip_smoke.POINT_BYTES * lanes, chip_smoke.needs((lanes, chip_smoke.POINT_ADD_NEEDS)))
+    assert row["pipe"] == "alu" and row["bound_by"] == "operations"
+    assert row["bound_ms"] == pytest.approx(lanes * 2687 / (64 * _SMS_HZ) * 1e3, rel=1e-12)
+    assert row["bytes_bound_ms"] == pytest.approx(3 * 96 * lanes / 3.35e12 * 1e3, rel=1e-12)
+    k = 36864
+    row = chip_smoke.bound(3 * 4 * 8 * k, chip_smoke.needs((k, chip_smoke.FE_ADD_NEEDS)))
+    assert row["bound_by"] == "bytes" and row["bound_ms"] == row["bytes_bound_ms"]
+    assert not hasattr(chip_smoke, "PEAK_OPS_PER_S")
+
+
+def test_gcd_needs_count_every_round(chip_smoke):
+    fp, fr = chip_smoke.gcd_needs(False), chip_smoke.gcd_needs(True)
+    assert fp["alu"] >= 17 * 31 * chip_smoke.GCD_STEP_NEEDS["alu"]
+    assert fr["imad"] > fp["imad"]                     # FR's Montgomery quotient is a full 8 x 1-limb product
+
+
 def test_probe_chain_steps_match_source():
     src = (ROOT / "mpc_bulletproof_tpu_torch" / "csrc" / "probes.cu").read_text()
     assert f"static const int CHAIN_STEPS = {probes.CHAIN_STEPS};" in src

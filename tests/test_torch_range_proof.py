@@ -144,7 +144,10 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "parallel/fabric.py", "parallel/device_shares.py", "models/r1cs_mpc/__init__.py",
                    "models/r1cs_mpc/authenticated_poly.py", "models/r1cs_mpc/mpc_constraint_system.py",
                    "models/r1cs_mpc/mpc_inner_product.py", "models/r1cs_mpc/mpc_linear_combination.py",
-                   "models/r1cs_mpc/mpc_prover.py", "models/r1cs_mpc/proof.py"):
+                   "models/r1cs_mpc/mpc_prover.py", "models/r1cs_mpc/proof.py",
+                   "models/range_proof/party.py", "models/range_proof/dealer.py",
+                   "models/range_proof/messages.py", "integration/__init__.py", "integration/main.py",
+                   "integration/launch.py"):
         assert f"mpc_bulletproof_tpu_torch/{module}" in names
     for f in files:
         for name in _imports(f):
