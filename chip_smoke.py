@@ -13,7 +13,9 @@ Phases, one JSON object per line on standard output:
    (``probe_xor_chain``) runs, which every per-pipe bound below uses.
 3. ``kernel``: each kernel against its plain PyTorch version on the card:
    ``point_add``, the inner scan and Horner at the shapes each of the
-   prove, verify, msm, r1cs_prove and r1cs_verify paths launches them with,
+   prove, verify, msm, r1cs_prove, r1cs_verify and ipp paths launches them
+   with (ipp: a round's pair of MSMs at 2^20, Horner at k = 2 and c = 16;
+   ``ipp_fold``: the 2^19-lane add of a fold of the 2^20 G),
    the segmented reduction (``point_reduce``) at every sum the paths run
    (prove's A bit sum, 1 x 2nm; every path's bucket tails; the fixed-base
    commitments of prove, m + 2 x 64, and of the msm phase's set-up,
@@ -95,9 +97,38 @@ Phases, one JSON object per line on standard output:
    ``Verifier.verify`` of it, two tampered copies (t_x + 1, the IPP's first
    L and R swapped) must raise ``VerificationError``; launches around one
    proof and one verification, one more proof split into its phase MSMs,
-   its inner-product argument and the host rest, warm verifications split
-   into the host terms and the MSM; a device profile of one proof.
-9. ``mpc``: the collaborative (2-party MPC) R1CS range proof over
+   its inner-product argument and the host rest, one more inside the
+   ``r1cs.prove`` span of ``utils/profiling.py`` (``profiling``: its
+   ``snapshot()``, which must count the span once), warm verifications
+   split into the host terms and the MSM; a device profile of one proof.
+9. ``ipp``: the inner-product argument alone (BASELINE.json config 3) on
+   ``pinned.ipp_inputs(n)`` (generators with known discrete logs, made on
+   the card from n = 32).  For n = 2^1 to 2^16 (``IPP_SWEEP``):
+   ``InnerProductProof.create`` (the host route below 32, the fused body
+   from 32) must give ``pinned.IPP_DIGESTS[n]``, and ``verify`` must
+   accept the proof (``verify_route``: the verifier's MSM of 1 + 2n + 2 lg
+   n points runs on the card from 32 points, on the host for n <= 8);
+   from n = 64 one warm proof, from 2^15 (``IPP_WARM_FROM``) the median
+   of ``IPP_WARM`` (host clock).  At n = 2^18 and 2^20 (``IPP_FULL``),
+   inputs made on the card: the fused proof (1 cold, with the launches and
+   the peak memory around it, and ``IPP_FULL_WARM`` warm, at 2^20 the
+   profiled one) and the
+   coefficient-tracking prover's (``_create_device``, two ``msm_device``
+   calls a round) must be equal byte for byte with equal transcript
+   states; ``verify`` from the generator tensors must accept it, and at
+   2^18 raise ``VerificationError`` for a + 1 and for L_1 swapped with
+   R_1; a ``profile`` of the warm fused proof at 2^20.  Then ``fold_points_shared``
+   at 2^19 lanes (one round's fold of the 2^20 G) and ``fold_points``
+   with per-lane scalars (a first round's H factors) at
+   ``FOLD_FACTOR_LANES``, each held to the host two-point MSM on
+   ``FOLD_SAMPLES`` lanes (the latter also in full to the same fold on the
+   plain add), 505 ``point_add`` launches each, their times;
+   ``msm_device_pair`` at the 2^20 round's width against two
+   ``msm_device`` calls (times in turns), at ``PAIR_HOST_POINTS`` against
+   the host MSM, and refusing c = 9 at 252 bits; ``msm_device_split`` at
+   ``SPLIT_POINTS`` against ``msm_device``.  ``phase_s``: the phase's
+   seconds, ``parts_s`` those of its parts.
+10. ``mpc``: the collaborative (2-party MPC) R1CS range proof over
    ``MPC_VALUES`` committed ``MPC_BITS``-bit values (n = 4,096
    multipliers), both parties as threads over the in-process link on one
    card (``MpcFabric(..., device="cuda")``): each party commits the values
@@ -116,7 +147,7 @@ Phases, one JSON object per line on standard output:
    parties' work).  ``mpc_small``: the JAX package's ``bench.py`` MPC
    configuration (the example gadget, ``BulletproofGens(16, 1)``) at a
    one-way link delay of 0 and 5 ms, median of warm proofs, verified.
-10. ``mpc_tcp``: the collaborative prover's two-process deployment: the
+11. ``mpc_tcp``: the collaborative prover's two-process deployment: the
    integration harness (``mpc_bulletproof_tpu_torch/integration``), both
    parties as OS processes on this card over loopback TCP, started by its
    launcher once the kernels are built.  Every case of its registry must
@@ -127,7 +158,7 @@ Phases, one JSON object per line on standard output:
    processes must include the point kernels and the vec2 family.  Seconds
    per proof beside the threads' median.  A process failing or the
    deadline (``TCP_DEADLINE_S``) passing fails the run.
-11. ``probes``: the three op-rate probes (``probe_chain``,
+12. ``probes``: the three op-rate probes (``probe_chain``,
    ``probe_xor_chain``, ``probe_accum``), every op of their TPU benches at
    the TPU shapes: each held bit for bit to its plain version (NaN equal to
    NaN; ``probe_edges``: also the redesigned two at ``probes.EDGE_*``,
@@ -144,15 +175,16 @@ Phases, one JSON object per line on standard output:
    ``cuobjdump -sass`` of the built library, its instructions a lane-step
    per pipe and the time they take to issue (``sass_issue_ms``;
    ``probe_sass`` lists every row whose loop issues more than it needs).
-12. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
+13. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
    ``point_reduce`` this one replaced, built from DIR (an older tree's
    ``mpc_bulletproof_tpu_torch/csrc``), against this tree's at the A bit
    sum's shape: equal as points, device times in turns (base, this, this,
    base); then one warm prove and r1cs_prove proof each profiled in the
    same turns, the base on the former route (that kernel for the A sum, the
    halving tree of ``point_add`` launches for every other sum).
-13. the ``kernels`` summary with launches per path (``pd`` the
-   party/dealer proof, ``tcp`` both processes of ``mpc_tcp``; for the
+14. the ``kernels`` summary with launches per path (``pd`` the
+   party/dealer proof, ``ipp`` one fused IPP proof at 2^20, ``tcp`` both
+   processes of ``mpc_tcp``; for the
    scans and Horner also their ptxas registers and spills, launch
    configurations and resident warps a scheduler), the card's
    ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -192,6 +224,21 @@ TCP_PROOFS = 3  # collaborative range proofs of the two-process run: 1 cold, 2 w
 TCP_DEADLINE_S = 300  # both processes killed, and the run failed, after this
 SHUFFLE_K = 1 << 10
 WARM_R1CS = 3
+# The inner-product argument alone: n = 2^k against pinned.IPP_DIGESTS for k
+# in IPP_SWEEP (from n = 64 one warm proof, from n = 2^IPP_WARM_FROM the
+# median of IPP_WARM); at the widths 2^k, k in
+# IPP_FULL, on inputs made on the card, 1 cold and IPP_FULL_WARM warm
+# proofs (at the last width the warm proof is the profiled one), the
+# tampered copies at the first width
+IPP_SWEEP = range(1, 17)
+IPP_WARM = 3
+IPP_WARM_FROM = 15
+IPP_FULL = (18, 20)
+IPP_FULL_WARM = 1
+FOLD_SAMPLES = 64  # lanes of a fold held to the host two-point MSM
+FOLD_FACTOR_LANES = 4096  # lanes of the fold with per-lane scalars (a first round's factors)
+PAIR_HOST_POINTS = 1000  # width at which msm_device_pair is held to the host MSM
+SPLIT_POINTS = 1 << 16  # width of the msm_device_split check
 SMS = 132
 RESIDENT_THREADS = SMS * 2048  # H100 SXM: 132 SMs of 2,048 resident threads
 PART_BLOCK_SCAN = (13, 1000)  # a scan shape (T, L) whose last block of 32 lanes is part-filled
@@ -208,8 +255,8 @@ ADD_KERNEL = {"wide": "point_add_kernel(", "narrow": "point_add_narrow_kernel("}
 GCD_STEPS = 17 * 31
 # point_reduce: a ragged row whose segments span blocks, a row of one
 # 1-level pass (four sub-trees a block, the last block part-filled), the
-# fixed-base commitments of the msm phase's set-up (2^17 points a call, 64
-# windows each)
+# fixed-base commitments of the msm phase's set-up (2^17 points a call,
+# generators._FIXED_BASE_CHUNK, 64 windows each)
 RAGGED_REDUCE = (3, 1000)
 ONE_LEVEL_REDUCE = (37, 2)
 MSM_SETUP_COMMITS = 1 << 17
@@ -470,18 +517,21 @@ REPLACES = {
 }
 # The entries of csrc/vec2.cu: the elementwise ops and the share plane's expressions.
 VEC2_FAMILY = ("vec2", "beaver_diff", "beaver_combine", "poly3_eval")
-# The kernels each path must launch.
+# The kernels each path must launch (vec2: the IPP rounds' scalar products).
 PATH_KERNELS = {
     "prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
-              "mod_pow_static"},
+              "mod_pow_static", "vec2"},
     "verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
     "msm": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
     "r1cs_prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
-                   "mod_pow_static"},
+                   "mod_pow_static", "vec2"},
     "r1cs_verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
     "mpc": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2",
             "beaver_diff", "beaver_combine", "poly3_eval"},
-    "pd": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "mod_pow_static"},
+    "pd": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "mod_pow_static",
+           "vec2"},
+    "ipp": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "mod_pow_static",
+            "vec2"},
     "tcp": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2",
             "beaver_diff", "beaver_combine", "poly3_eval"},
     "probes": {"probe_chain", "probe_xor_chain", "probe_accum"},
@@ -859,7 +909,7 @@ def shuffle_widths(k: int) -> tuple[int, int]:
 
 
 def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = MSM_LOG2N,
-                shuffle_k: int = SHUFFLE_K) -> dict:
+                shuffle_k: int = SHUFFLE_K, ipp_log2n: int = IPP_FULL[-1]) -> dict:
     """The shapes at which each path launches the point kernels (``tail``:
     the bucket tails' segment sums, ``point_reduce``).  prove: an
     IPP round's L/R pair of split-table MSMs (``point_add`` at its chunk
@@ -869,7 +919,9 @@ def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = M
     252-bit MSMs over n + 1 points (both MSMs' windows in one bucket phase,
     Horner at k = 2), and under ``r1cs_prove:<MSMs>`` the phase-2 MSMs of
     at least ``_DEVICE_MIN`` points (:func:`shuffle_phase_widths`; the
-    smaller ones run on the host); r1cs_verify: the shuffle's mega-check."""
+    smaller ones run on the host); r1cs_verify: the shuffle's mega-check;
+    ipp: a round of the IPP alone at 2^ipp_log2n, a pair of 252-bit MSMs
+    over n + 1 points as r1cs_prove's."""
     from mpc_bulletproof_tpu_torch.constants import FIELD_BITS
     from mpc_bulletproof_tpu_torch.ops import backend
     from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
@@ -884,7 +936,8 @@ def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = M
     phase = [(f"r1cs_prove:{name}", n, 1) for name, n in shuffle_phase_widths(shuffle_k).items()
              if n >= backend._DEVICE_MIN]
     for path, n, k in (("verify", verify_width(n_bits, m_parties), 1), ("msm", 1 << log2n, 1),
-                       ("r1cs_prove", ipp_n + 1, 2), *phase, ("r1cs_verify", r1cs_width, 1)):
+                       ("r1cs_prove", ipp_n + 1, 2), *phase, ("r1cs_verify", r1cs_width, 1),
+                       ("ipp", (1 << ipp_log2n) + 1, 2)):
         c = msm_mod.select_window(n)
         nw = -(-FIELD_BITS // c)
         W = msm_mod._window_group(k * nw, n)
@@ -908,7 +961,7 @@ def timed_ms(fn):
 
 
 def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIES,
-                  log2n: int = MSM_LOG2N, shuffle_k: int = SHUFFLE_K) -> dict:
+                  log2n: int = MSM_LOG2N, shuffle_k: int = SHUFFLE_K, ipp_log2n: int = IPP_FULL[-1]) -> dict:
     """Each kernel against its plain version: the point kernels at the
     shapes each path launches them with (:func:`path_shapes`), the others
     at the prove path's or their own.  Returns per kernel the prove (or
@@ -950,7 +1003,7 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
         emit(res)
         rows.setdefault(name, {})[path] = res
 
-    shapes = path_shapes(n_bits, m_parties, log2n, shuffle_k)
+    shapes = path_shapes(n_bits, m_parties, log2n, shuffle_k, ipp_log2n)
     for path, sh in shapes.items():
         aw, an = sh["add"]
         a, b = add_operands(pool, aw * an, gen)
@@ -975,6 +1028,15 @@ def check_kernels(gpu: str, dev, n_bits: int = N_BITS, m_parties: int = M_PARTIE
               {"nw": nw, "c": c, "k": k}, launch=horner_launch(k),
               serial=("product", (nw - 1) * (c + 1) * ADD_PRODUCTS["narrow"]))
         torch.cuda.empty_cache()
+
+    # the ipp phase's fold of the widest G: one round's 2^(ipp_log2n - 1) lanes, the wide design
+    aw = 1 << (ipp_log2n - 1)
+    a, b = add_operands(pool, aw, gen)
+    check("point_add", "ipp_fold", (a, b), kernels.point_add, lambda: curve_t._point_add(a, b),
+          bound(3 * POINT_BYTES * aw, needs((aw, POINT_ADD_NEEDS))), {"W": 1, "lanes": aw},
+          extra={"design": kernels.point_add_design(aw)}, serial=("product", ADD_PRODUCTS[kernels.point_add_design(aw)]))
+    del a, b
+    torch.cuda.empty_cache()
 
     # no path launches point_scan_steps: the prove scan's shape, steps outside the words
     T, L = shapes["prove"]["T"], shapes["prove"]["W"] * shapes["prove"]["nt"]
@@ -1183,14 +1245,16 @@ def reduce_plans_check(gpu: str, pool, gen) -> dict:
 
 
 def check_vec_ops(gpu: str, scalars) -> dict:
-    """vec_mul, vec_add and vec_sub against their plain versions at two
-    widths: ``VEC_N`` (no path) and ``MPC_VEC_N`` (the mpc path's
-    t-polynomial Beaver products), each FR at (NW, n), FR with a width-1 b
-    (the MAC key and public scalars of the share plane), and FP; the FR
-    full-width case and the width-1 product are timed.  Then the share
+    """vec_mul, vec_add and vec_sub against their plain versions at three
+    widths: ``VEC_N`` (no path), 2^IPP_FULL[-1] (the IPP's full-width
+    coefficient products and witness folds, the folds by one challenge
+    column) and ``MPC_VEC_N`` (the mpc path's t-polynomial Beaver
+    products), each FR at (NW, n), FR with a width-1 b (the MAC key and
+    public scalars of the share plane, the IPP's challenges), and FP; the
+    FR full-width case and the width-1 product are timed.  Then the share
     plane's entries at the mpc path's shapes (:func:`check_share_plane`).
     Returns ``{"vec2": row, ...}``: the vec_mul row at the mpc path's width
-    with every op's row under ``ops`` and both widths under ``at_paths``,
+    with every op's row under ``ops`` and every width under ``at_paths``,
     and a row per share-plane entry."""
     import torch
 
@@ -1203,7 +1267,7 @@ def check_vec_ops(gpu: str, scalars) -> dict:
         return a, b
 
     at_paths, rows = {}, {}
-    for path, n in (("none", VEC_N), ("mpc", MPC_VEC_N)):
+    for path, n in (("none", VEC_N), ("ipp", 1 << IPP_FULL[-1]), ("mpc", MPC_VEC_N)):
         (a, b), (fa, fb) = pair(n, FR), pair(n, FP)
         b1 = b[:, 2:3].contiguous()                          # r - 1, broadcast
         rows = {}
@@ -1522,7 +1586,7 @@ def msm_phase(gpu: str, dev, log2n: int = MSM_LOG2N) -> dict:
     import torch
 
     from mpc_bulletproof_tpu_torch.constants import R
-    from mpc_bulletproof_tpu_torch.generators import device_point_table
+    from mpc_bulletproof_tpu_torch.generators import fixed_base_points
     from mpc_bulletproof_tpu_torch.ops import curve_t, kernels, limb
     from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
     from mpc_bulletproof_tpu_torch.ops.curve import StarkPoint
@@ -1545,13 +1609,7 @@ def msm_phase(gpu: str, dev, log2n: int = MSM_LOG2N) -> dict:
         [0, R - 1, (1 << (c * (-(-252 // c) - 1))) - (1 << (c * (-(-252 // c) - 2))), 1]), device=dev)
     s[:, 3:7] = edge                                            # 0, r - 1, top window on a borrow, 1
     G = StarkPoint.generator()
-    table = device_point_table(G, dev)
-    chunks = []
-    for i in range(0, n, 1 << 17):                              # 2^17 points a call
-        kc = k[:, i : i + (1 << 17)]
-        off = torch.zeros(kc.shape[-1], dtype=torch.int64, device=dev)
-        chunks.append(msm_mod.fixed_commit(table, off, kc, off, torch.zeros_like(kc)))
-    pts = torch.cat(chunks, dim=-1).contiguous()
+    pts = fixed_base_points(k, G)                               # MSM_SETUP_COMMITS points a call
     k_int, s_int = limb.words_to_ints(k), limb.words_to_ints(s)
 
     def want(count):
@@ -1605,6 +1663,7 @@ def r1cs_phase(gpu: str, dev, k: int = SHUFFLE_K) -> dict:
     from mpc_bulletproof_tpu_torch.models.inner_product import InnerProductProof
     from mpc_bulletproof_tpu_torch.models.r1cs.gadgets import shuffle_gadget
     from mpc_bulletproof_tpu_torch.ops import backend, kernels
+    from mpc_bulletproof_tpu_torch.utils import profiling
 
     want = pinned.SHUFFLE_DIGESTS[k]
     inputs, outputs, blindings = pinned.shuffle_inputs(k)
@@ -1707,6 +1766,19 @@ def r1cs_phase(gpu: str, dev, k: int = SHUFFLE_K) -> dict:
     p = prover()
     split = prove_split(lambda: prove(p))
 
+    # one more warm proof inside the profiling span of Prover.prove
+    p = prover()
+    profiling.reset()
+    profiling.enable()
+    try:
+        prove(p)
+    finally:
+        profiling.disable()
+    spans = profiling.snapshot()
+    profiling.reset()
+    if spans["counts"] != {"r1cs.prove": 1}:
+        raise RuntimeError(f"profiling counted {spans['counts']} around one proof, not r1cs.prove once")
+
     res = {"phase": "r1cs", "gadget": "shuffle", "k": k, "multipliers": 2 * (k - 1), "n": ipp_n,
            "digest": want, "digest_equal": True, "proof_bytes": len(proof.to_bytes()),
            "gens_s": gens_s, "commit_s": commit_s, "commits": 2 * k, "gadget_s": gadget_s,
@@ -1718,11 +1790,293 @@ def r1cs_phase(gpu: str, dev, k: int = SHUFFLE_K) -> dict:
            "us_per_verify_median": statistics.median(w_all) * 1e3,
            "host_terms_us_median": statistics.median(w_terms) * 1e3,
            "msm_us_median": statistics.median(w_msm) * 1e3,
-           "launches": {"r1cs_prove": prove_launches, "r1cs_verify": verify_launches}, "gpu": gpu}
+           "launches": {"r1cs_prove": prove_launches, "r1cs_verify": verify_launches}, "profiling": spans,
+           "gpu": gpu}
     emit(res)
     p = prover()
     emit(profile_run(lambda: prove(p), res["us_per_proof_median"], gpu, "r1cs_prove"))
     res["proof_run"] = (prover, prove)
+    return res
+
+
+def ipp_inputs_on(n: int, dev) -> dict:
+    """``pinned.ipp_inputs(n)`` for ``InnerProductProof.create`` on ``dev``:
+    host lists below ``_DEVICE_MIN`` (the host route; the generators made
+    on the card by ``fixed_base_mul``), tensors made on the card from
+    there on; plus ``P``, the commitment the proof opens, by one
+    ``msm_device`` over the 2n + 1 points ``[G | H | Q]``."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch import StarkPoint, pinned
+    from mpc_bulletproof_tpu_torch.generators import fixed_base_mul
+    from mpc_bulletproof_tpu_torch.ops import backend, curve_t, limb
+    from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
+
+    B = StarkPoint.generator()
+    if n < backend._DEVICE_MIN:
+        inp = pinned.ipp_host_inputs(n, lambda ints: fixed_base_mul(ints, B, dev))
+        sc = lambda xs: torch.as_tensor(curve_t.scalars_from_host(xs), device=dev)
+        pt = lambda xs: torch.as_tensor(curve_t.points_from_host(xs), device=dev)
+        a, b, hf, G, H = sc(inp["a"]), sc(inp["b"]), sc(inp["H_factors"]), pt(inp["G"]), pt(inp["H"])
+    else:
+        inp = pinned.ipp_device_inputs(n, dev)
+        a, b, hf, G, H = inp["a"], inp["b"], inp["H_factors"], inp["G"], inp["H"]
+    scalars = torch.cat([a, limb.mod_mul(b, hf, limb.FR), limb.inner_product_mod(a, b, limb.FR)[:, None]], dim=-1)
+    points = torch.cat([G, H, torch.as_tensor(curve_t.points_from_host([inp["Q"]]), device=dev)], dim=-1)
+    inp["P"] = curve_t.points_to_host(msm_mod.msm_device(scalars, points)[..., None])[0]
+    return inp
+
+
+def ipp_prove(inp: dict, dev, create=None):
+    """The IPP alone on ``inp`` (:func:`ipp_inputs_on`): ``(proof, final
+    transcript state)``.  ``create``: ``_create_device`` (after the IPP
+    domain is opened), else ``InnerProductProof.create``."""
+    from mpc_bulletproof_tpu_torch import HashChainTranscript, InnerProductProof, pinned
+    from mpc_bulletproof_tpu_torch.models.inner_product import _width
+
+    t = HashChainTranscript(pinned.IPP_LABEL)
+    args = (inp["Q"], inp["G_factors"], inp["H_factors"], inp["G"], inp["H"], inp["a"], inp["b"])
+    if create is None:
+        return InnerProductProof.create(t, *args, device=dev), t.state
+    t.innerproduct_domain_sep(_width(inp["G"]))
+    return create(t, *args, device=dev), t.state
+
+
+def ipp_verify(proof, inp: dict, dev, factors: tuple) -> None:
+    """``proof.verify`` on ``dev`` against ``inp["P"]``; ``factors``: the
+    host ``(G_factors, H_factors)``."""
+    from mpc_bulletproof_tpu_torch import HashChainTranscript, pinned
+
+    n = 1 << len(proof.L_vec)
+    proof.verify(n, HashChainTranscript(pinned.IPP_LABEL), *factors, inp["P"], inp["Q"], inp["G"], inp["H"],
+                 device=dev)
+
+
+def ipp_host_factors(inp: dict) -> tuple:
+    """``(G_factors, H_factors)`` of ``inp`` as host ints."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops.limb import words_to_ints
+
+    if isinstance(inp["H_factors"], torch.Tensor):
+        return words_to_ints(inp["G_factors"]), words_to_ints(inp["H_factors"])
+    return [int(x) for x in inp["G_factors"]], [int(x) for x in inp["H_factors"]]
+
+
+def ipp_tampered(proof) -> dict:
+    """The two tampered copies: a + 1, and L_1 swapped with R_1."""
+    from mpc_bulletproof_tpu_torch import InnerProductProof
+
+    return {"a+1": InnerProductProof(proof.L_vec, proof.R_vec, proof.a + 1, proof.b),
+            "swap_L1_R1": InnerProductProof([proof.R_vec[0]] + proof.L_vec[1:],
+                                            [proof.L_vec[0]] + proof.R_vec[1:], proof.a, proof.b)}
+
+
+def fold_check(gpu: str, what: str, run, G_L, G_R, scalars, plain=None) -> dict:
+    """A fold of points on the ``point_add`` kernel (``run()``, one of
+    ``ops/fold.py``'s calls over ``G_L``, ``G_R``): 64 sampled lanes held
+    to the host two-point MSM (``scalars(i)``: the host ``(s_l, s_r)`` of
+    lane i), and with ``plain`` (the same fold composed on the plain add)
+    every lane word for word; its launches, its time by events around one
+    call and by the profiler (every launch of a call)."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.constants import FIELD_BITS
+    from mpc_bulletproof_tpu_torch.ops import curve_t, kernels
+    from mpc_bulletproof_tpu_torch.ops.curve import StarkPoint
+
+    h = G_L.shape[-1]
+    kernels.reset_launches()
+    got, events_ms = timed_ms(run)
+    launches = kernels.launches["point_add"]
+    if launches != 2 * FIELD_BITS + 1:
+        raise RuntimeError(f"fold_points ({what}) made {launches} point_add launches, not {2 * FIELD_BITS + 1}")
+    lanes = torch.linspace(0, h - 1, FOLD_SAMPLES, device=G_L.device).long().unique()
+    pick = lambda t: curve_t.points_to_host(t[..., lanes])
+    want = [StarkPoint.msm(list(scalars(i)), [gl, gr]) for i, gl, gr in zip(lanes.tolist(), pick(G_L), pick(G_R))]
+    if pick(got) != want:
+        raise RuntimeError(f"fold_points ({what}) disagrees with the host two-point MSM")
+    res = {"what": what, "lanes": h, "sampled_equal_host": len(want), "point_add_launches": launches,
+           "design": kernels.point_add_design(h), "events_ms": events_ms, "device_ms": device_ms(run, 1, True)}
+    if plain is not None:
+        want_all, plain_ms = timed_ms(plain)
+        res.update({"max_abs_err": max_abs_err(got, want_all, 1), "plain_ms": plain_ms})
+        if res["max_abs_err"] != 0:
+            raise RuntimeError(f"fold_points ({what}) disagrees with its composition on the plain add")
+    return res
+
+
+def ipp_phase(gpu: str, dev, sweep=IPP_SWEEP, full=IPP_FULL) -> dict:
+    """The inner-product argument alone (BASELINE.json config 3):
+    ``InnerProductProof.create`` on ``pinned.ipp_inputs(n)`` for n = 2^k,
+    k in ``sweep``, held to ``pinned.IPP_DIGESTS`` and verified on the
+    card; at the widths 2^k, k in ``full``, on inputs made on the card, the
+    fused and the coefficient-tracking provers held to each other, the
+    proof verified from the generator tensors and two tampered copies
+    rejected; then ``fold_points`` (one round's fold of G, and a first
+    round's per-lane factors), ``msm_device_pair`` and ``msm_device_split``
+    against their oracles."""
+    import hashlib
+
+    import torch
+
+    from mpc_bulletproof_tpu_torch import StarkPoint, VerificationError, pinned
+    from mpc_bulletproof_tpu_torch.constants import R
+    from mpc_bulletproof_tpu_torch.models.inner_product import _create_device
+    from mpc_bulletproof_tpu_torch.ops import backend, curve_t, fold, kernels, limb
+    from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
+
+    t_start = time.perf_counter()
+    parts: dict = {}
+
+    def part(name: str) -> None:
+        """Close the part ``name``: the seconds since the last one closed."""
+        parts[name] = time.perf_counter() - t_start - sum(parts.values())
+
+    rows = []
+    for k in sweep:
+        n = 1 << k
+        inp = ipp_inputs_on(n, dev)
+        t0 = time.perf_counter()
+        proof, state = ipp_prove(inp, dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        digest = pinned.ipp_digest(proof, state)
+        if digest != pinned.IPP_DIGESTS[n]:
+            raise RuntimeError(f"IPP digest at n = {n}: {digest} != pinned {pinned.IPP_DIGESTS[n]}")
+        ipp_verify(proof, inp, dev, ipp_host_factors(inp))
+        msm_points = 1 + 2 * n + 2 * k                    # the verifier's one MSM
+        row = {"n": n, "route": "host" if n < backend._DEVICE_MIN else "fused", "digest_equal": True,
+               "verified": True, "verify_route": "host" if msm_points < backend._DEVICE_MIN else "card",
+               "first_ms": first_ms}
+        if n >= 64:
+            reps = IPP_WARM if k >= IPP_WARM_FROM else 1
+            row["warm_ms"] = host_ms(lambda: ipp_prove(inp, dev), reps)
+            row["ms_median"] = statistics.median(row["warm_ms"])
+        rows.append(row)
+    part("sweep")
+
+    wide = []
+    launches = profile = None
+    for k in full:
+        n = 1 << k
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inp = ipp_inputs_on(n, dev)
+        inputs_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        proof, state = ipp_prove(inp, dev)                       # cold
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        counted = read_launches("ipp")
+        peak = torch.cuda.max_memory_allocated()
+        widest = k == full[-1]
+        # at the widest the warm proof is the profiled one, below
+        warm = [] if widest else host_ms(lambda: ipp_prove(inp, dev), IPP_FULL_WARM)
+        t0 = time.perf_counter()
+        d_proof, d_state = ipp_prove(inp, dev, _create_device)
+        device_prover_ms = (time.perf_counter() - t0) * 1e3
+        if d_proof.to_bytes() != proof.to_bytes() or d_state != state:
+            raise RuntimeError(f"IPP at n = {n}: the fused and the coefficient-tracking provers differ")
+        factors = ipp_host_factors(inp)
+        verify_ms = host_ms(lambda: ipp_verify(proof, inp, dev, factors), 1)
+        rejected = {}
+        for case, bad in ipp_tampered(proof).items() if k == full[0] else ():
+            try:
+                ipp_verify(bad, inp, dev, factors)
+            except VerificationError:
+                rejected[case] = True
+            else:
+                raise RuntimeError(f"IPP verify at n = {n} accepted a tampered proof ({case})")
+        row = {"n": n, "inputs_s": inputs_s, "cold_ms": cold_ms, "warm_ms": warm,
+               "ms_median": statistics.median(warm) if warm else None, "create_device_ms": device_prover_ms,
+               "fused_equals_create_device": True, "digest": pinned.ipp_digest(proof, state),
+               "verify_ms": verify_ms, "verified": True, "rejected": rejected, "launches": counted,
+               "peak_mem_bytes": peak, "mem_before_bytes": base_mem}
+        wide.append(row)
+        part(f"full_{n}")
+        if widest:
+            # eager PyTorch compiles nothing per shape, so the first proof at
+            # a width is as fast as a warm one and stands for it unprofiled
+            launches = counted
+            profile = profile_run(lambda: ipp_prove(inp, dev), cold_ms * 1e3, gpu, f"ipp_{n}")
+            last = inp
+            part("profile")
+
+    # fold_points: one round's fold of the widest G (one shared challenge
+    # pair), and a first round's H fold with per-lane factors
+    G, H = last["G"], last["H"]
+    h = G.shape[-1] // 2
+    u = int.from_bytes(hashlib.sha256(b"ipp-fold").digest(), "little") % R
+    u_inv = pow(u, -1, R)
+    w = lambda v: torch.as_tensor(limb.ints_to_words([v]), device=dev)
+    G_L, G_R = G[..., :h].contiguous(), G[..., h:].contiguous()
+    folds = [fold_check(gpu, "shared", lambda: fold.fold_points_shared(w(u_inv), w(u), G_L, G_R), G_L, G_R,
+                        lambda i: (u_inv, u))]
+    del G_L, G_R
+    f = FOLD_FACTOR_LANES
+    sl = limb.mod_mul(last["H_factors"][:, :f], w(u), limb.FR)
+    sr = limb.mod_mul(last["H_factors"][:, f : 2 * f], w(u_inv), limb.FR)
+    bits_l, bits_r = fold.scalar_bits(sl), fold.scalar_bits(sr)
+    H_L, H_R = H[..., :f].contiguous(), H[..., f : 2 * f].contiguous()
+    sl_int, sr_int = limb.words_to_ints(sl), limb.words_to_ints(sr)
+    folds.append(fold_check(gpu, "per_lane", lambda: fold.fold_points(bits_l, bits_r, H_L, H_R), H_L, H_R,
+                            lambda i: (sl_int[i], sr_int[i]),
+                            plain=lambda: fold._fold(bits_l, bits_r, H_L, H_R, curve_t._point_add)))
+    part("fold_points")
+
+    # msm_device_pair at the widest round's shape, against two msm_device calls
+    n = G.shape[-1]
+    a, b = last["a"], last["b"]
+    sA, sB = torch.cat([a, b[:, :1]], dim=-1), torch.cat([b, a[:, :1]], dim=-1)
+    pA, pB = torch.cat([G, H[..., :1]], dim=-1), torch.cat([H, G[..., :1]], dim=-1)
+    c = msm_mod.select_window(n + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pair = msm_mod.msm_device_pair(sA, pA, sB, pB, c)
+    pair_peak = torch.cuda.max_memory_allocated()
+    singles = torch.stack([msm_mod.msm_device(sA, pA), msm_mod.msm_device(sB, pB)], dim=-1)
+    if curve_t.points_to_host(pair) != curve_t.points_to_host(singles):
+        raise RuntimeError("msm_device_pair disagrees with two msm_device calls")
+    times = {"pair": [], "two_singles": []}
+    for who in ("pair", "two_singles", "two_singles", "pair"):
+        fn = ((lambda: msm_mod.msm_device_pair(sA, pA, sB, pB, c)) if who == "pair"
+              else (lambda: (msm_mod.msm_device(sA, pA), msm_mod.msm_device(sB, pB))))
+        times[who] += host_ms(fn, 1)
+    k = PAIR_HOST_POINTS
+    small = [t[..., :k].contiguous() for t in (sA, pA, sB, pB)]
+    got = curve_t.points_to_host(msm_mod.msm_device_pair(*small, msm_mod.select_window(k)))
+    want = [StarkPoint.msm(limb.words_to_ints(s), curve_t.points_to_host(p))
+            for s, p in ((small[0], small[1]), (small[2], small[3]))]
+    if got != want:
+        raise RuntimeError(f"msm_device_pair at {k} points disagrees with the host MSM")
+    try:
+        msm_mod.msm_device_pair(*small, 9)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("msm_device_pair took c = 9 at 252 bits (a full top window)")
+    pair_row = {"n": n + 1, "c": c, "equal_two_msm_device": True, "host_equal_at": small[0].shape[-1],
+                "c9_raises": True, "ms": {who: statistics.median(v) for who, v in times.items()},
+                "ms_turns": times, "peak_mem_bytes": pair_peak}
+    part("msm_device_pair")
+
+    # msm_device_split at SPLIT_POINTS points against msm_device of the same input
+    m = SPLIT_POINTS
+    s_m, p_m = a[:, :m].contiguous(), G[..., :m].contiguous()
+    split = msm_mod.msm_device_split(s_m, msm_mod.split_points_device(p_m))
+    if curve_t.points_to_host(split[..., None]) != curve_t.points_to_host(msm_mod.msm_device(s_m, p_m)[..., None]):
+        raise RuntimeError(f"msm_device_split at {m} points disagrees with msm_device")
+    split_row = {"n": m, "c": msm_mod.select_window(4 * m, msm_mod.SPLIT_CHUNK_BITS), "equal_msm_device": True}
+    part("msm_device_split")
+
+    res = {"phase": "ipp", "sweep": rows, "full": wide, "fold_points": folds, "msm_device_pair": pair_row,
+           "msm_device_split": split_row, "launches": launches, "phase_s": time.perf_counter() - t_start,
+           "parts_s": parts, "gpu": gpu}
+    emit(res)
+    emit(profile)
     return res
 
 
@@ -2644,6 +2998,7 @@ def main() -> int:
     pd = party_dealer_phase(gpu, dev, mp)
     ms = msm_phase(gpu, dev)
     rc = r1cs_phase(gpu, dev)
+    ip = ipp_phase(gpu, dev)
     mc = mpc_phase(gpu, dev)
     tcp = mpc_tcp_phase(gpu, dev, mc)
     pr = probes_phase(gpu, dev)
@@ -2652,7 +3007,8 @@ def main() -> int:
         ab_phase(gpu, dev, args.ab, {"prove": mp["proof_run"], "r1cs_prove": rc["proof_run"]})
 
     paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"],
-             **rc["launches"], "mpc": mc["launches"], "pd": pd["launches"], "tcp": tcp["launches"],
+             **rc["launches"], "ipp": ip["launches"], "mpc": mc["launches"], "pd": pd["launches"],
+             "tcp": tcp["launches"],
              "probes": pr["launches"]}
     summary = kernel_summary(checks, paths, entries)
     emit({"kernels": summary})

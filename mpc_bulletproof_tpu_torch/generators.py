@@ -20,6 +20,7 @@ from .constants import R
 from .ops.curve import StarkPoint
 from .ops.field import Scalar
 from .ops.keccak import keccak256, keccak256_batch32, pad_label
+from .transcript import hash_to_scalar
 from .utils.device import resolve_device
 
 _TABLE_CACHE: dict = {}
@@ -43,16 +44,33 @@ def device_point_table(pt: StarkPoint, device) -> torch.Tensor:
     return table
 
 
+# Scalars a fixed_commit call takes in fixed_base_points: its gather is 64
+# records a scalar, ~0.8 GB of points at 2^17.
+_FIXED_BASE_CHUNK = 1 << 17
+
+
+def fixed_base_points(sc: torch.Tensor, pt: StarkPoint) -> torch.Tensor:
+    """``(NW, k)`` canonical scalars on a device -> the ``(3, NW, k)``
+    projective points ``s_i pt`` on it, through the fixed-base table
+    (:func:`.ops.msm.fixed_commit`, ``_FIXED_BASE_CHUNK`` scalars a call)."""
+    from .ops import msm
+
+    table = device_point_table(pt, sc.device)
+    parts = []
+    for i in range(0, sc.shape[-1], _FIXED_BASE_CHUNK):
+        part = sc[:, i : i + _FIXED_BASE_CHUNK]
+        off = torch.zeros(part.shape[-1], dtype=torch.int64, device=sc.device)
+        parts.append(msm.fixed_commit(table, off, part, off, torch.zeros_like(part)))
+    return torch.cat(parts, dim=-1).contiguous()
+
+
 def fixed_base_mul(scalars, pt: StarkPoint, device) -> list[StarkPoint]:
     """``[s pt for s in scalars]`` through the fixed-base table on ``device``."""
-    from .ops import curve_t, msm, transcript_t
+    from .ops import curve_t, transcript_t
     from .ops.limb import words_to_ints
 
-    k = len(scalars)
-    table = device_point_table(pt, device)
     sc = torch.as_tensor(curve_t.scalars_from_host(scalars), device=device)
-    off = torch.zeros(k, dtype=torch.int64, device=device)
-    pts = msm.fixed_commit(table, off, sc, off, torch.zeros_like(sc))
+    pts = fixed_base_points(sc, pt)
     x, y, is_id = transcript_t.lazy_points_to_affine(pts)
     xs, ys, ids = words_to_ints(x), words_to_ints(y), is_id.cpu().tolist()
     return [StarkPoint.identity() if i else StarkPoint(a, b) for a, b, i in zip(xs, ys, ids)]
@@ -103,9 +121,49 @@ class PedersenGens:
         """:meth:`commit` for each pair."""
         return [self.commit(v, b) for v, b in zip(values, blindings)]
 
+    def commit_shared(self, value, blinding):
+        """``value B + blinding B_blinding`` for values of any type whose
+        product with a point is defined (a shared value's, where the MPC
+        fabric's types define one)."""
+        return value * self.B + blinding * self.B_blinding
+
 
 def _chain_start(label: bytes) -> bytes:
     return keccak256(pad_label(b"GeneratorsChain" + label))
+
+
+class GeneratorsChain:
+    """One labelled chain, walked a step at a time (the batch of chains
+    that :class:`BulletproofGens` walks side by side is
+    :func:`chain_scalars`)."""
+
+    __slots__ = ("state",)
+
+    def __init__(self, label: bytes = b""):
+        self.state = _chain_start(label)
+
+    def fast_forward(self, n: int) -> "GeneratorsChain":
+        """Skip ``n`` generators."""
+        for _ in range(n):
+            self.state = keccak256(self.state)
+        return self
+
+    def next_scalar(self) -> Scalar:
+        self.state = keccak256(self.state)
+        return hash_to_scalar(self.state)
+
+    def take_scalars(self, n: int) -> list[Scalar]:
+        return [self.next_scalar() for _ in range(n)]
+
+    def take(self, n: int, *, device="cuda") -> list[StarkPoint]:
+        """The next ``n`` generators: on the card by :func:`fixed_base_mul`,
+        on ``device="cpu"`` by host scalar multiplications."""
+        dev = resolve_device(device)
+        scalars = self.take_scalars(n)
+        gen = StarkPoint.generator()
+        if dev.type == "cpu" or not scalars:
+            return [gen.scalar_mul(s) for s in scalars]
+        return fixed_base_mul(scalars, gen, dev)
 
 
 def chain_scalars(labels: list[bytes], skip: int, count: int) -> list[list[Scalar]]:
@@ -161,6 +219,11 @@ class BulletproofGens:
 
     def share(self, j: int) -> "BulletproofGensShare":
         return BulletproofGensShare(self, j)
+
+    def as_mpc_values(self) -> "BulletproofGensShare":
+        """The generators for the MPC provers: public points, so party 0's
+        view (:meth:`share`)."""
+        return self.share(0)
 
     def G(self, n: int, m: int) -> list[StarkPoint]:
         """Party-major aggregated G vector."""

@@ -14,6 +14,13 @@ width of :data:`_DEVICE_MIN` the prover runs on the host in Python
 integers, as the JAX package's does.  The proof is ``(L_1..L_k, R_1..R_k,
 a, b)``.
 
+Two more provers give the same proof and transcript, and no route of
+:meth:`InnerProductProof.create` takes them (the JAX package reaches them
+from its tests and benches): :func:`_create_device`, the coefficient
+tracking with two single MSMs a round and the host transcript, and
+:func:`_create_host_folding`, the classic prover that folds G and H every
+round.
+
 The verifier replays the transcript on the host for the challenges, builds
 the scalar vectors there and checks one MSM (:func:`..ops.backend.dispatch_msm`).
 """
@@ -28,7 +35,7 @@ import torch
 from ..constants import FIELD_BITS, R, SCALAR_BYTES, STARK_POINT_BYTES
 from ..ops.backend import _DEVICE_MIN, dispatch_msm
 from ..ops.curve import StarkPoint
-from ..ops.field import Scalar
+from ..ops.field import Scalar, inner_product
 from ..transcript import HashChainTranscript
 from ..utils.device import resolve_device
 from ..utils.errors import FormatError, VerificationError
@@ -48,19 +55,22 @@ class InnerProductProof:
 
         ``G_vec`` and ``H_vec`` are host point lists, or from
         :data:`_DEVICE_MIN` on also ``(3, NW, n)`` point tensors already on
-        ``device``.  From :data:`_DEVICE_MIN` the rounds run on ``device``
-        (the card unless the caller asks for the CPU), below it on the host
-        over host lists; a point tensor below it raises rather than move
-        back to the host.  A card asked for and missing raises."""
+        ``device``; likewise ``a_vec``, ``b_vec``, ``G_factors`` and
+        ``H_factors`` are host scalar lists or ``(NW, n)`` tensors of
+        canonical scalars.  From :data:`_DEVICE_MIN` the rounds run on
+        ``device`` (the card unless the caller asks for the CPU), below it
+        on the host over host lists; a tensor below it raises rather than
+        move back to the host.  A card asked for and missing raises."""
         dev = resolve_device(device)
+        vecs = (G_vec, H_vec, a_vec, b_vec, G_factors, H_factors)
         n = _width(G_vec)
-        if not all(len(v) == n for v in (a_vec, b_vec, G_factors, H_factors)) or _width(H_vec) != n:
+        if not all(_width(v) == n for v in vecs):
             raise ValueError("IPP input vectors must share one length")
         if n & (n - 1):
             raise ValueError("IPP length must be a power of two")
         on_host = n < _DEVICE_MIN
-        if on_host and any(isinstance(v, torch.Tensor) for v in (G_vec, H_vec)):
-            raise ValueError(f"IPP below width {_DEVICE_MIN} runs on the host: pass host point lists")
+        if on_host and any(isinstance(v, torch.Tensor) for v in vecs):
+            raise ValueError(f"IPP below width {_DEVICE_MIN} runs on the host: pass host point lists and scalar lists")
         transcript.innerproduct_domain_sep(n)
         if on_host:
             return _create_host(transcript, Q, G_factors, H_factors, list(G_vec), list(H_vec),
@@ -88,31 +98,47 @@ class InnerProductProof:
         """``(u_j^2, u_j^-2, s)`` for the parent protocol's single MSM:
         ``s_0 = prod_j u_j^-1``, ``s_i = s_(i - 2^k) u_(lg n - k)^2`` with
         ``k = floor(lg i)``."""
+        return tuple([Scalar(x) for x in v] for v in self._verification_ints(n, transcript))
+
+    def _verification_ints(self, n: int, transcript: HashChainTranscript):
+        """:meth:`verification_scalars` as Python ints in ``[0, r)``; ``s``
+        grows by doubling, entries ``2^k .. 2^(k+1) - 1`` the first ``2^k``
+        times ``u_(lg n - k)^2``."""
         challenges, challenges_inv = self.replay_challenges(n, transcript)
         lg_n = len(self.L_vec)
-        allinv = Scalar(1)
+        allinv = 1
         for ci in challenges_inv:
-            allinv = allinv * ci
-        u_sq = [u * u for u in challenges]
-        u_inv_sq = [u * u for u in challenges_inv]
+            allinv = allinv * int(ci) % R
+        u_sq = [int(u) * int(u) % R for u in challenges]
+        u_inv_sq = [int(u) * int(u) % R for u in challenges_inv]
         s = [allinv]
-        for i in range(1, n):
-            lg_i = i.bit_length() - 1
-            s.append(s[i - (1 << lg_i)] * u_sq[(lg_n - 1) - lg_i])
+        for k in range(lg_n):
+            u = u_sq[(lg_n - 1) - k]
+            s += [x * u % R for x in s]
         return u_sq, u_inv_sq, s
 
     def verify(self, n: int, transcript: HashChainTranscript, G_factors: list[Scalar],
-               H_factors: list[Scalar], P: StarkPoint, Q: StarkPoint, G: list[StarkPoint],
-               H: list[StarkPoint], *, device="cuda") -> None:
+               H_factors: list[Scalar], P: StarkPoint, Q: StarkPoint, G, H, *,
+               device="cuda") -> None:
         """Check ``P = <a s G_factors, G> + <b s^-1 H_factors, H> + a b Q
         - sum_j (u_j^2 L_j + u_j^-2 R_j)`` by one MSM on ``device`` (the card
-        unless the caller asks for the CPU).  Raises :class:`VerificationError`."""
-        u_sq, u_inv_sq, s = self.verification_scalars(n, transcript)
-        g_a_s = [(self.a * s_i) * g_i for g_i, s_i in zip(G_factors, s)]
-        h_b_s = [(self.b * s_inv) * h_i for h_i, s_inv in zip(H_factors, reversed(s))]
-        scalars = ([self.a * self.b] + g_a_s + h_b_s + [-u for u in u_sq]
-                   + [-u for u in u_inv_sq])
-        points = [Q] + G + H + self.L_vec + self.R_vec
+        unless the caller asks for the CPU).  ``G`` and ``H`` are host point
+        lists or ``(3, NW, n)`` point tensors; with a tensor the MSM runs
+        over the points concatenated on its device.  The scalars are
+        computed on the host.  Raises :class:`VerificationError`."""
+        u_sq, u_inv_sq, s = self._verification_ints(n, transcript)
+        a, b = int(self.a), int(self.b)
+        g_a_s = [a * s_i % R * int(g_i) % R for g_i, s_i in zip(G_factors, s)]
+        h_b_s = [b * s_inv % R * int(h_i) % R for h_i, s_inv in zip(H_factors, reversed(s))]
+        scalars = ([a * b % R] + g_a_s + h_b_s + [(R - u) % R for u in u_sq]
+                   + [(R - u) % R for u in u_inv_sq])
+        LR = self.L_vec + self.R_vec
+        if any(isinstance(v, torch.Tensor) for v in (G, H)):
+            dev = (G if isinstance(G, torch.Tensor) else H).device
+            points = torch.cat([_device_points([Q], dev), _device_points(G, dev),
+                                _device_points(H, dev), _device_points(LR, dev)], dim=-1)
+        else:
+            points = [Q] + list(G) + list(H) + LR
         if dispatch_msm(scalars, points, device=device) != P:
             raise VerificationError("inner product proof failed")
 
@@ -153,8 +179,17 @@ class InnerProductProof:
         return InnerProductProof(L_vec, R_vec, a, b_sc)
 
 
-def _width(pts) -> int:
-    return pts.shape[-1] if isinstance(pts, torch.Tensor) else len(pts)
+def _width(vec) -> int:
+    """Length of a host list, or the last axis of a point or scalar tensor."""
+    return vec.shape[-1] if isinstance(vec, torch.Tensor) else len(vec)
+
+
+def _device_scalars(xs, device) -> torch.Tensor:
+    from ..ops import curve_t
+
+    if isinstance(xs, torch.Tensor):
+        return xs.to(device)
+    return torch.as_tensor(curve_t.scalars_from_host(xs), device=device)
 
 
 def _device_points(pts, device) -> torch.Tensor:
@@ -163,6 +198,23 @@ def _device_points(pts, device) -> torch.Tensor:
     if isinstance(pts, torch.Tensor):
         return pts.to(device)
     return torch.as_tensor(curve_t.points_from_host(pts), device=device)
+
+
+def _fr_mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x y mod r`` lane by lane on ``csrc/vec2.cu`` (its plain version on
+    a CPU tensor); ``y`` may be one ``(NW, 1)`` column."""
+    from ..ops import kernels
+    from ..ops.limb import FR
+
+    return kernels.vec_mul(x.contiguous(), y.contiguous(), FR)
+
+
+def _fr_inner(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``<x, y> mod r`` of ``(NW, n)`` words as one ``(NW, 1)`` column: the
+    lane products on the kernel, their sum in one reduction."""
+    from ..ops import limb
+
+    return limb.sum_mod(_fr_mul(x, y), limb.FR)[:, None]
 
 
 def _create_host(transcript, Q, G_factors, H_factors, G, H, a, b, device) -> InnerProductProof:
@@ -214,6 +266,115 @@ def _create_host(transcript, Q, G_factors, H_factors, G, H, a, b, device) -> Inn
     return InnerProductProof(L_vec, R_vec, Scalar(av[0]), Scalar(bv[0]))
 
 
+def _create_host_folding(transcript, Q, G_factors, H_factors, G, H, a, b, *,
+                         device="cuda") -> InnerProductProof:
+    """The classic folding prover over host lists: each round L and R are
+    MSMs over the live halves of the folded generators
+    (:func:`dispatch_msm` on ``device``), then G and H fold per element by
+    a two-point ``StarkPoint.msm``, the factors folded into the first
+    round.  The same proof and transcript as :func:`_create_host`; the
+    caller has opened the transcript's IPP domain."""
+    n = len(G)
+    L_vec: list[StarkPoint] = []
+    R_vec: list[StarkPoint] = []
+    msm = lambda s, p: dispatch_msm(s, p, device=device)
+    first = True
+    while n > 1:
+        n //= 2
+        a_L, a_R = a[:n], a[n:]
+        b_L, b_R = b[:n], b[n:]
+        G_L, G_R = G[:n], G[n:]
+        H_L, H_R = H[:n], H[n:]
+        c_L = inner_product(a_L, b_R)
+        c_R = inner_product(a_R, b_L)
+        if first:
+            L = msm([x * g for x, g in zip(a_L, G_factors[n : 2 * n])]
+                    + [x * h for x, h in zip(b_R, H_factors[:n])] + [c_L], G_R + H_L + [Q])
+            R_pt = msm([x * g for x, g in zip(a_R, G_factors[:n])]
+                       + [x * h for x, h in zip(b_L, H_factors[n : 2 * n])] + [c_R], G_L + H_R + [Q])
+        else:
+            L = msm(a_L + b_R + [c_L], G_R + H_L + [Q])
+            R_pt = msm(a_R + b_L + [c_R], G_L + H_R + [Q])
+        L_vec.append(L)
+        R_vec.append(R_pt)
+        transcript.append_point(b"L", L)
+        transcript.append_point(b"R", R_pt)
+        u = transcript.challenge_scalar(b"u")
+        u_inv = u.inverse()
+        a = [al * u + u_inv * ar for al, ar in zip(a_L, a_R)]
+        b = [bl * u_inv + u * br for bl, br in zip(b_L, b_R)]
+        if first:
+            G = [StarkPoint.msm([u_inv * gl_f, u * gr_f], [G_L[i], G_R[i]])
+                 for i, (gl_f, gr_f) in enumerate(zip(G_factors[:n], G_factors[n : 2 * n]))]
+            H = [StarkPoint.msm([u * hl_f, u_inv * hr_f], [H_L[i], H_R[i]])
+                 for i, (hl_f, hr_f) in enumerate(zip(H_factors[:n], H_factors[n : 2 * n]))]
+            first = False
+        else:
+            G = [StarkPoint.msm([u_inv, u], [gl, gr]) for gl, gr in zip(G_L, G_R)]
+            H = [StarkPoint.msm([u, u_inv], [hl, hr]) for hl, hr in zip(H_L, H_R)]
+    return InnerProductProof(L_vec, R_vec, Scalar(a[0]), Scalar(b[0]))
+
+
+def _create_device(transcript, Q, G_factors, H_factors, G, H, a, b, *,
+                   device="cuda") -> InnerProductProof:
+    """The coefficient-tracking prover (module docstring) with its vectors
+    on ``device`` (the card unless the caller asks for the CPU).
+
+    Each round L and R are two :func:`..ops.msm.msm_device` calls of ``n +
+    1`` points over ``[G | H | Q]`` (:func:`_ipp_round_indices`); the
+    coefficient updates (on ``csrc/vec2.cu``, :func:`_fr_mul`) and the
+    witness folds (:func:`..ops.fold.fold_scalars`) stay on the device, and
+    only L and R cross to the host transcript, where the challenge is
+    inverted.  The inputs are host lists or tensors
+    as for :meth:`InnerProductProof.create`; the caller has opened the
+    transcript's IPP domain.  Gives :func:`_create_host`'s proof and
+    transcript."""
+    from ..ops import curve_t as ct
+    from ..ops import fold, limb
+    from ..ops import msm as msm_mod
+    from ..ops.limb import words_to_ints
+
+    dev = resolve_device(device)
+    n = _width(G)
+    a_d, b_d = _device_scalars(a, dev), _device_scalars(b, dev)
+    wG, wH = _device_scalars(G_factors, dev), _device_scalars(H_factors, dev)
+    pts = torch.cat([_device_points(G, dev), _device_points(H, dev), _device_points([Q], dev)], dim=-1)
+    word = lambda v: torch.as_tensor(limb.ints_to_words([v]), device=dev)      # (NW, 1)
+    lanes = torch.arange(n, device=dev)
+    L_vec: list[StarkPoint] = []
+    R_vec: list[StarkPoint] = []
+    cur = n
+    while cur > 1:
+        half = cur // 2
+        a_L, a_R = a_d[:, :half], a_d[:, half:]
+        b_L, b_R = b_d[:, :half], b_d[:, half:]
+        c_L, c_R = _fr_inner(a_L, b_R), _fr_inner(a_R, b_L)
+        r = lanes % cur
+        hi = r >= half                                   # the classes of the right half
+        at_hi, at_lo = torch.where(hi, r - half, 0), torch.where(hi, 0, r)
+        hi_r = hi[None]
+        sL = _fr_mul(torch.where(hi_r, wG, wH), torch.where(hi_r, a_L[:, at_hi], b_R[:, at_lo]))
+        sR = _fr_mul(torch.where(hi_r, wH, wG), torch.where(hi_r, b_L[:, at_hi], a_R[:, at_lo]))
+        idxL, idxR = (torch.as_tensor(ix, device=dev) for ix in _ipp_round_indices(n, cur))
+        L_d = msm_mod.msm_device(torch.cat([sL, c_L], dim=-1), pts[:, :, idxL])
+        R_d = msm_mod.msm_device(torch.cat([sR, c_R], dim=-1), pts[:, :, idxR])
+        L, R_pt = ct.points_to_host(torch.stack([L_d, R_d], dim=-1))
+        L_vec.append(L)
+        R_vec.append(R_pt)
+        transcript.append_point(b"L", L)
+        transcript.append_point(b"R", R_pt)
+        u = transcript.challenge_scalar(b"u")
+        u_d, u_inv_d = word(int(u)), word(int(u.inverse()))
+        if half > 1:                                     # the coefficients die with the last round
+            wG = _fr_mul(wG, torch.where(hi_r, u_d, u_inv_d))
+            wH = _fr_mul(wH, torch.where(hi_r, u_inv_d, u_d))
+        a_d = fold.fold_scalars(u_d, u_inv_d, a_L, a_R)
+        b_d = fold.fold_scalars(u_inv_d, u_d, b_L, b_R)
+        cur = half
+    a_fin, b_fin = words_to_ints(torch.cat([a_d[:, :1], b_d[:, :1]], dim=-1))
+    return InnerProductProof(L_vec, R_vec, Scalar(a_fin), Scalar(b_fin))
+
+
 def _create_device_fused(transcript, Q, G_factors, H_factors, G, H, a, b, device) -> InnerProductProof:
     """Every round on ``device`` (:func:`fused_ipp_body`, general branch over
     ``[G | H | Q | identity]``); one copy back to the host at the end, and
@@ -222,8 +383,8 @@ def _create_device_fused(transcript, Q, G_factors, H_factors, G, H, a, b, device
     from ..ops import packio
     from ..ops.limb import NW, words_to_ints
 
-    n = len(a)
-    sc = lambda xs: torch.as_tensor(ct.scalars_from_host(xs), device=device)
+    n = _width(a)
+    sc = lambda xs: _device_scalars(xs, device)
     table = torch.cat([_device_points(G, device), _device_points(H, device),
                        _device_points([Q], device), ct.identity((1,), device)], dim=-1).contiguous()
     state = torch.as_tensor(np.frombuffer(transcript.state, np.uint8).astype(np.int64), device=device)
@@ -268,8 +429,9 @@ def fused_ipp_body(n: int, device, table_gens: bool = False):
     is ``[G(n) | H(n) | Q | identity]`` and each round's L and R are one
     pair of 252-bit MSMs over its records (``c = select_window(n + 1)``):
     one sort, one bucket phase and one Horner chain with both outputs on the
-    lane axis (:func:`..ops.msm._msm_multi_table_impl`)."""
-    from ..ops import kernels, limb
+    lane axis (:func:`..ops.msm._msm_multi_table_impl`).  The scalar
+    products and sums run on ``csrc/vec2.cu`` (:func:`_fr_mul`)."""
+    from ..ops import kernels
     from ..ops import msm as msm_mod
     from ..ops import transcript_t as tj
     from ..ops.limb import FR, NW
@@ -301,8 +463,7 @@ def fused_ipp_body(n: int, device, table_gens: bool = False):
             # entries past cur are zero, so the slices carry zeros past half
             a_R = a_d[:, half : half + nh]
             b_R = b_d[:, half : half + nh]
-            c_L = limb.inner_product_mod(a_L, b_R, FR)[:, None]
-            c_R = limb.inner_product_mod(a_R, b_L, FR)[:, None]
+            c_L, c_R = _fr_inner(a_L, b_R), _fr_inner(a_R, b_L)
 
             r = lanes % cur
             hi = r >= half
@@ -312,11 +473,11 @@ def fused_ipp_body(n: int, device, table_gens: bool = False):
             aL_of, bL_of = a_L[:, at_hi], b_L[:, at_hi]
             bR_of, aR_of = b_R[:, at_lo], a_R[:, at_lo]
             hi_r = hi[None]
-            sL = limb.mod_mul(torch.where(hi_r, wG, wH), torch.where(hi_r, aL_of, bR_of), FR)
-            sR = limb.mod_mul(torch.where(hi_r, wH, wG), torch.where(hi_r, bL_of, aR_of), FR)
+            sL = _fr_mul(torch.where(hi_r, wG, wH), torch.where(hi_r, aL_of, bR_of))
+            sR = _fr_mul(torch.where(hi_r, wH, wG), torch.where(hi_r, bL_of, aR_of))
             if table_gens:
-                sL = msm_mod.split_scalars_device(torch.cat([sL, limb.mod_mul(c_L, q_scale, FR)], -1))
-                sR = msm_mod.split_scalars_device(torch.cat([sR, limb.mod_mul(c_R, q_scale, FR)], -1))
+                sL = msm_mod.split_scalars_device(torch.cat([sL, _fr_mul(c_L, q_scale)], -1))
+                sR = msm_mod.split_scalars_device(torch.cat([sR, _fr_mul(c_R, q_scale)], -1))
             else:
                 sL, sR = torch.cat([sL, c_L], dim=-1), torch.cat([sR, c_R], dim=-1)
             LR = msm_mod._msm_multi_table_impl([(sL, recL), (sR, recR)], table, c, bits)
@@ -329,10 +490,10 @@ def fused_ipp_body(n: int, device, table_gens: bool = False):
             u_inv = kernels.mod_pow_static(u.contiguous(), R - 2, FR)
             xs.append(x), ys.append(y), iids.append(iid)
 
-            wG = limb.mod_mul(wG, torch.where(hi_r, u, u_inv), FR)
-            wH = limb.mod_mul(wH, torch.where(hi_r, u_inv, u), FR)
-            a_next = limb.mod_add(limb.mod_mul(a_L, u, FR), limb.mod_mul(a_R, u_inv, FR), FR)
-            b_next = limb.mod_add(limb.mod_mul(b_L, u_inv, FR), limb.mod_mul(b_R, u, FR), FR)
+            wG = _fr_mul(wG, torch.where(hi_r, u, u_inv))
+            wH = _fr_mul(wH, torch.where(hi_r, u_inv, u))
+            a_next = kernels.vec_add(_fr_mul(a_L, u), _fr_mul(a_R, u_inv), FR)
+            b_next = kernels.vec_add(_fr_mul(b_L, u_inv), _fr_mul(b_R, u), FR)
             zpad = a_next.new_zeros((NW, n - nh))
             a_d = torch.cat([a_next, zpad], dim=-1)
             b_d = torch.cat([b_next, zpad], dim=-1)

@@ -33,6 +33,7 @@ from ...ops.field import Scalar
 from ...ops.poly import Poly6
 from ...transcript import HashChainTranscript
 from ...utils.device import resolve_device
+from ...utils import profiling
 from ...utils.errors import InvalidGeneratorsLengthError, MissingAssignmentError
 from ..inner_product import InnerProductProof
 from .constraint_system import (
@@ -217,7 +218,12 @@ class Prover(RandomizableConstraintSystem):
         ``device`` (the card unless the caller asks for the CPU); a card
         asked for and missing raises.  The blinding RNG is keyed by the
         transcript, the witness and 32 bytes of entropy: ``rng_bytes(32)``
-        when given, else ``secrets``."""
+        when given, else ``secrets``.  The body runs inside the
+        ``r1cs.prove`` span of :mod:`...utils.profiling`."""
+        with profiling.span("r1cs.prove"):
+            return self._prove_inner(bp_gens, device, rng_bytes)
+
+    def _prove_inner(self, bp_gens: BulletproofGens, device, rng_bytes) -> R1CSProof:
         dev = resolve_device(device)
         t = self._transcript
         t.append_u64(b"m", len(self.v))

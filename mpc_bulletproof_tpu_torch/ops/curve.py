@@ -405,3 +405,8 @@ def stark_point_to_transcript_bytes(point: StarkPoint) -> bytes:
     if point.is_identity():
         return b"\x00" * 64
     return point.x.to_bytes(32, "little") + point.y.to_bytes(32, "little")
+
+
+def random_point(rng=None) -> StarkPoint:
+    """A random curve point: :meth:`StarkPoint.random`."""
+    return StarkPoint.random(rng)

@@ -135,6 +135,25 @@ def inner_product(a: Sequence[Scalar], b: Sequence[Scalar]) -> Scalar:
     return Scalar(sum(x.value * y.value for x, y in zip(a, b)))
 
 
+def exp_iter(x: Scalar):
+    """Endless iterator ``1, x, x^2, ...``."""
+    cur = 1
+    xv = x.value
+    while True:
+        yield Scalar(cur)
+        cur = cur * xv % R
+
+
+def scalar_exp_vartime(x: Scalar, n: int) -> Scalar:
+    """``x^n`` by binary exponentiation."""
+    return Scalar(pow(x.value, n, R))
+
+
+def scalars_from_ints(values) -> list[Scalar]:
+    """``[Scalar(v) for v in values]``."""
+    return [Scalar(v) for v in values]
+
+
 def add_vec(a: Sequence[Scalar], b: Sequence[Scalar]) -> list[Scalar]:
     """Elementwise sum."""
     return [x + y for x, y in zip(a, b)]

@@ -7,6 +7,9 @@
   gathered beside), and the windows go through the bucket phase below in
   groups (:func:`_window_group`) that gather their records from ``[points
   | identity]`` straight into the scan layout (:func:`_msm_device_impl`).
+  :func:`msm_device_pair` runs two same-width MSMs as one (one sort, one
+  bucket phase, one Horner chain over ``[pA | pB | identity]``), and
+  :func:`msm_device_split` one against a pre-shifted split table.
 
 Every MSM of the fused range prover hits FIXED bases: the G/H generator
 chains and the Pedersen bases.  So two precomputed tables serve them all.
@@ -279,6 +282,39 @@ def msm_device(scalars: torch.Tensor, points: torch.Tensor, c: int | None = None
     if scalars.shape[-1] == 0:
         return identity((), points.device).contiguous()
     return _msm_device_impl(scalars, points.contiguous(), c)
+
+
+def msm_device_pair(sA: torch.Tensor, pA: torch.Tensor, sB: torch.Tensor, pB: torch.Tensor,
+                    c: int, bits: int = FIELD_BITS) -> torch.Tensor:
+    """Two same-width MSMs as one -> ``(3, NW, 2)``: ``sum sA_i pA_i`` and
+    ``sum sB_i pB_i`` over ``(NW, n)`` scalars and ``(3, NW, n)`` points.
+
+    One sort of both MSMs' windows side by side, one bucket phase and one
+    Horner chain with both outputs on the lane axis, against the table
+    ``[pA | pB | identity]`` (:func:`_msm_multi_table_impl`).  A ``c`` whose
+    top window is full at ``bits`` raises ``ValueError``."""
+    n = sA.shape[-1]
+    for s, p in ((sA, pA), (sB, pB)):
+        if s.dim() != 2 or s.shape[0] != NW or s.shape[-1] != n:
+            raise ValueError("msm_device_pair: expected two (NW, n) scalar tensors of one width")
+        if tuple(p.shape) != (3, NW, n) or p.device != sA.device or s.device != sA.device:
+            raise ValueError("msm_device_pair: expected (3, NW, n) points beside the scalars")
+    table = torch.cat([pA, pB, identity((1,), pA.device)], dim=-1).contiguous()
+    rec = torch.arange(n, device=pA.device)
+    return _msm_multi_table_impl([(sA, rec), (sB, rec + n)], table, c, bits)
+
+
+def msm_device_split(scalars: torch.Tensor, points4: torch.Tensor, c: int | None = None) -> torch.Tensor:
+    """MSM of ``(NW, n)`` scalars against a pre-shifted ``(3, NW, 4n)`` table
+    (:func:`split_points_device`) -> ``(3, NW)``: the scalars' 64-bit chunks
+    (:func:`split_scalars_device`) in windows of
+    ``select_window(4n, 64)`` bits."""
+    s4 = split_scalars_device(scalars)
+    if tuple(points4.shape) != (3, NW, s4.shape[-1]):
+        raise ValueError("msm_device_split: expected a (3, NW, 4n) split table")
+    if c is None:
+        c = select_window(s4.shape[-1], SPLIT_CHUNK_BITS)
+    return _msm_device_impl(s4, points4.contiguous(), c, SPLIT_CHUNK_BITS)
 
 
 def msm_host_points(scalars, points, c: int | None = None, *, device="cuda"):

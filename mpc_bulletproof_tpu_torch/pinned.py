@@ -25,6 +25,21 @@ takes a few seconds of CPU)::
     BP_FORCE_BACKEND=host JAX_PLATFORMS=cpu python -c \
         "from tests.test_torch_mpc import jax_mpc_range; print(jax_mpc_range(64, 64)[2])"
 
+The inner-product argument alone: :func:`ipp_inputs` makes an n-wide
+IPP's witness and generators from one fixed seed with numpy, the
+generators with known discrete logs (``G_i = g_i B``, ``H_i = h_i B``, ``Q
+= q B``, B the curve generator; ``G_factors`` all one, ``H_factors`` =
+``y^-i``), so that wide inputs cost a fixed-base product each instead of a
+walk of the keccak generator chains, which the proof does not depend on.
+:data:`IPP_DIGESTS` holds, per n, the sha256 of ``proof bytes || final
+transcript state`` (:func:`ipp_digest`, transcript labelled
+:data:`IPP_LABEL`) from the JAX package's host ``InnerProductProof.create``.
+To recompute them (n up to 2^16 takes about a minute of CPU with the JAX
+package's native engine)::
+
+    JAX_PLATFORMS=cpu python -c \
+        "from tests.test_torch_ipp import jax_ipp_digest; print(jax_ipp_digest(1 << 16))"
+
 ``chip_smoke.py`` holds the card's proofs to these digests, and the CPU
 tests recompute them from the JAX package.
 """
@@ -34,11 +49,16 @@ from __future__ import annotations
 import hashlib
 import random
 
+import numpy as np
+
+from .constants import R
 from .ops.field import Scalar
 
 TRANSCRIPT_LABEL = b"fused-rp"
 SHUFFLE_LABEL = b"ShuffleProofTest"
 MPC_LABEL = b"mpc-range"
+IPP_LABEL = b"ipp-alone"
+IPP_SEED = 1103
 
 DIGESTS = {
     (8, 2): "1f97185de6591a8a35c03ecf79378ba753cdf8182fd8eea9094da55091d8ec2c",
@@ -55,6 +75,26 @@ MPC_RANGE_DIGESTS = {
     (4, 2): "99799541d8825308e570fd3ef7281e4673587a8e419b9623f6b664efa6024e78",
     (8, 2): "da514356c3e56f6dad7761b9f3cdaaed65f141a9a4f1d9fa90fda11229faf0bb",
     (64, 64): "aff23d88bad49214ea128ce2962019dc8102b0e20e6f91127bf3ce9cb65286e1",
+}
+
+# n -> sha256(proof bytes || final transcript state) of the IPP alone on ipp_inputs(n)
+IPP_DIGESTS = {
+    2: "d4554d92fbb231ddb027c65e5e5c7431db8f42d716e907bd38b3a248e812cb0f",
+    4: "25289e3b2ece834751bc056a14c5d4e0013e3b706da0894ff4d235d4772178ce",
+    8: "691f6736b3ef3c72842016490477599ffe3dc958a57e2fb66ec2c70ddb1f4f3e",
+    16: "c1513a76019e4a1efacbd45c3509742dba578b566bce9ffb1be454739fc8d406",
+    32: "385c8051ad01a3c64e106042f13bd6d3b5963820ac9e11ff2bcd9f866ba2f084",
+    64: "697cce42dd7f60c867f548f98abdde911173d48d3f6e3ac5536607c20b8e5c4f",
+    128: "4bbe5b76c4e3e1e3f8aebba82f405748abf78054622b0d47e521c2ecd4e5d4ed",
+    256: "01fd6b020764d77f6edd729b76049ddd73136a04691c73653ab1e075d64219f5",
+    512: "1b48654ad8246965bb36ed767419cc93dc1ae58739aeb95959f1e58b9f502e3b",
+    1024: "6ab831b6a58680b29f8d70df239f517e59333c589787c27afd4a4e3ac14c4cb1",
+    2048: "da048731bf7f07550fedfe1dff7ea86abe0abef4b3109a88e5e49303ce51aab1",
+    4096: "af6bfc226709fda2c5425aeab875d0024fd005877dc6a5bc11194795435b7cfa",
+    8192: "41932e1ff1bc5bedd2e912409691582361e3d9c1772cb06ab598070a816455ea",
+    16384: "6fdbebae2f3022476f38e515f23288a2084c06358ea47824e4a681dd96d283e1",
+    32768: "23a0d8351a708bc067d6c318d4c74f2a534f42a9d2548f7a12d40d9b195cee8f",
+    65536: "b15ac0fa92efb0b077fc1079ca7ecf4a4502e9f255c1d12210a4a37e8f6875e0",
 }
 
 
@@ -155,3 +195,65 @@ def mpc_range_party(prover, fabric, n: int, values, blindings, scalar=Scalar):
             exp_2 = exp_2 + exp_2
         prover.constrain(lc)
     return commitments
+
+
+def ipp_inputs(n: int) -> dict:
+    """The inputs of the n-wide IPP alone, from ``IPP_SEED`` with numpy:
+    ``q`` and ``y`` (ints), then ``a``, ``b``, ``g``, ``h`` (``(NW, n)``
+    int64 word arrays).  Every scalar is four random 64-bit words with the
+    top one cut to 59 bits, so below ``2^251 < r``: reduced mod r."""
+    rng = np.random.default_rng(IPP_SEED)
+
+    def draw(k: int) -> np.ndarray:
+        w = rng.integers(0, 1 << 64, size=(4, k), dtype=np.uint64, endpoint=False)
+        w[3] &= np.uint64((1 << 59) - 1)
+        return w.view(np.int64)
+
+    qy = draw(2)
+    q, y = (sum(int(qy[i, j]) % (1 << 64) << (64 * i) for i in range(4)) for j in range(2))
+    return {"q": q, "y": y, **{name: draw(n) for name in ("a", "b", "g", "h")}}
+
+
+def ipp_host_inputs(n: int, point_mul, scalar=Scalar) -> dict:
+    """:func:`ipp_inputs` as host lists for ``InnerProductProof.create``:
+    ``Q``, ``G_factors``, ``H_factors``, ``G``, ``H``, ``a``, ``b``.
+    ``point_mul(ints)`` returns ``[k B for k in ints]`` as points of the
+    prover's package; ``scalar`` is its ``Scalar`` class."""
+    from .ops.limb import words_to_ints
+
+    raw = ipp_inputs(n)
+    y_inv = pow(raw["y"], -1, R)
+    ints = {k: words_to_ints(raw[k]) for k in ("a", "b", "g", "h")}
+    h_factors, cur = [], 1
+    for _ in range(n):
+        h_factors.append(scalar(cur))
+        cur = cur * y_inv % R
+    G, H = point_mul(ints["g"]), point_mul(ints["h"])
+    return {"Q": point_mul([raw["q"]])[0], "G_factors": [scalar(1)] * n,
+            "H_factors": h_factors, "G": G, "H": H,
+            "a": [scalar(v) for v in ints["a"]], "b": [scalar(v) for v in ints["b"]]}
+
+
+def ipp_device_inputs(n: int, device) -> dict:
+    """:func:`ipp_inputs` on ``device``: the keys of :func:`ipp_host_inputs`,
+    ``Q`` a host point, every vector a tensor (``(NW, n)`` scalars, ``(3,
+    NW, n)`` points made there by :func:`..generators.fixed_base_points`)."""
+    import torch
+
+    from .generators import fixed_base_points
+    from .ops import limb
+    from .ops.curve import StarkPoint
+
+    raw = ipp_inputs(n)
+    t = lambda w: torch.as_tensor(w, device=device)
+    B = StarkPoint.generator()
+    y_inv = t(limb.ints_to_words([pow(raw["y"], -1, R)]))[:, 0]
+    return {"Q": B.scalar_mul(Scalar(raw["q"])),
+            "G_factors": limb.from_const(1, (n,), device).contiguous(),
+            "H_factors": limb.powers(y_inv, n, limb.FR).contiguous(),
+            "G": fixed_base_points(t(raw["g"]), B), "H": fixed_base_points(t(raw["h"]), B),
+            "a": t(raw["a"]), "b": t(raw["b"])}
+
+
+def ipp_digest(proof, transcript_state: bytes) -> str:
+    return hashlib.sha256(proof.to_bytes() + transcript_state).hexdigest()
