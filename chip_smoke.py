@@ -7,7 +7,7 @@
 Phases, one JSON object per line on standard output:
 
 1. ``env``: torch and CUDA versions, the ``nvcc`` path, the card.
-2. ``build``: all thirteen CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
+2. ``build``: all fifteen CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with each library's ptxas report.
    ``clock``: the SM clock ``nvidia-smi`` reports while the full xor chain
    (``probe_xor_chain``) runs, which every per-pipe bound below uses.
@@ -63,7 +63,20 @@ Phases, one JSON object per line on standard output:
    in turns (wide, narrow, narrow, wide); ``mod_pow_ab``: the inverse by
    the ladder and by the GCD at each inverse path shape, held to the
    plain version and timed in turns.
-4. ``main_path``: ``RangeProof.prove_multiple`` at (n, m) = (64, 64) on the
+4. ``gens``: the generator chains.  ``keccak_chain`` (a thread a chain)
+   and ``keccak256_32`` against their plain versions byte for byte at
+   ``KECCAK_CHAIN_CHECKS`` and ``KECCAK_HASH_N`` messages, and the wide
+   set-up's walk (2 chains of ``GENS_WIDE`` steps) with its last 256 steps
+   held to the plain walk; their kernel lines (the chain's bound the
+   larger of its issue time and its dependency bound: ``KECCAK_F_DEPTH``
+   dependent instructions a step at ``DEP_LATENCY_CYCLES``).  Then
+   ``BulletproofGens(size, 1)`` for ``GENS_SIZES`` (benches/generators.rs),
+   ``GENS_WIDE`` (a k = 2^16 shuffle's capacity) and ``GENS_AGGREGATED``,
+   each against ``pinned.GENS_DIGESTS`` from its host lists and from its
+   device tensors, its seconds split into walk, keccak, reduction,
+   fixed-base products, affine conversion and host lists; the launches of
+   the wide set-up and a profile of it (counts must match).
+5. ``main_path``: ``RangeProof.prove_multiple`` at (n, m) = (64, 64) on the
    pinned inputs; the digest of proof, commitments and transcript must equal
    the JAX package's (``mpc_bulletproof_tpu_torch/pinned.py``).  Launch
    counts are read around one proof, then the median of warm proofs.
@@ -72,12 +85,19 @@ Phases, one JSON object per line on standard output:
    by CUDA source beside the launch counters of the same proof
    (``by_source``, ``counts_match``), all device launches and the
    device's idle share.
-5. ``verify``: ``verify_multiple`` of that proof; two tampered copies (t_x + 1,
+6. ``verify``: ``verify_multiple`` of that proof; two tampered copies (t_x + 1,
    L_1 swapped with R_1) must raise ``VerificationError``; ``verify_batch``
    of it and a second proof must pass.  Launch counts around one
    verification, then the median of warm ones, split into the host terms
    and the MSM.
-6. ``party_dealer``: the same (64, 64) proof by the party/dealer protocol
+7. ``rp_sweep``: the reference's range-proof sweep on the main path's
+   generators: config 1 (``prove_single`` of the README's 32-bit value,
+   ``verify_single``) and config 2 at ``RP_SWEEP_M`` values, each a cold
+   proof against ``pinned.DIGESTS``, a warm one and a verification; at m
+   = 1 a tampered copy (t_x + 1) must raise ``VerificationError`` and the
+   verification is the median of ``VERIFY_MEDIAN_RUNS`` calls beside its
+   host terms and its MSM.
+8. ``party_dealer``: the same (64, 64) proof by the party/dealer protocol
    (``Party``, ``Dealer``; the 64 parties in order on one
    ``pinned.det_stream()``): its digest must be the fused prover's,
    ``verify_multiple`` on the card must accept it, ``receive_shares`` must
@@ -86,11 +106,11 @@ Phases, one JSON object per line on standard output:
    proof, the median of warm proofs (host clock), the host split of one
    audited proof (the parties' phases, the dealer's rounds, the share
    audits, the inner-product argument) and a ``profile``.
-7. ``msm``: ``msm_device`` at n = 2^20 on points P_i = k_i G made on the card;
+9. ``msm``: ``msm_device`` at n = 2^20 on points P_i = k_i G made on the card;
    the result must equal (sum_i s_i k_i) G.  Launch counts around one MSM,
    the median of warm ones, peak memory, a device profile; then one MSM of
    8,286 points (the (64, 64) verification's width), checked the same way.
-8. ``r1cs``: the shuffle gadget at k = 2^10 (2,046 multipliers, n = 2,048)
+10. ``r1cs``: the shuffle gadget at k = 2^10 (2,046 multipliers, n = 2,048)
    on the pinned inputs: commit and gadget seconds, the cold proof and the
    median of warm ``Prover.prove`` calls, the digest of proof, commitments
    and transcript against the JAX package's (``pinned.SHUFFLE_DIGESTS``);
@@ -101,7 +121,13 @@ Phases, one JSON object per line on standard output:
    ``r1cs.prove`` span of ``utils/profiling.py`` (``profiling``: its
    ``snapshot()``, which must count the span once), warm verifications
    split into the host terms and the MSM; a device profile of one proof.
-9. ``ipp``: the inner-product argument alone (BASELINE.json config 3) on
+11. ``r1cs_sweep``: the reference's R1CS sweeps on the ``gens`` phase's
+   ``BulletproofGens(1024, 1)``: the squaring chain (benches/r1cs.rs) at
+   ``SQUARING_SWEEP`` multipliers and the shuffle at ``SHUFFLE_SWEEP``, one
+   proof each against ``pinned.SQUARING_DIGESTS`` / ``SHUFFLE_DIGESTS``,
+   split into phase MSMs, IPP and host rest (``rest_s_per_multiplier``),
+   each verified on the card.
+12. ``ipp``: the inner-product argument alone (BASELINE.json config 3) on
    ``pinned.ipp_inputs(n)`` (generators with known discrete logs, made on
    the card from n = 32).  For n = 2^1 to 2^16 (``IPP_SWEEP``):
    ``InnerProductProof.create`` (the host route below 32, the fused body
@@ -128,7 +154,7 @@ Phases, one JSON object per line on standard output:
    the host MSM, and refusing c = 9 at 252 bits; ``msm_device_split`` at
    ``SPLIT_POINTS`` against ``msm_device``.  ``phase_s``: the phase's
    seconds, ``parts_s`` those of its parts.
-10. ``mpc``: the collaborative (2-party MPC) R1CS range proof over
+13. ``mpc``: the collaborative (2-party MPC) R1CS range proof over
    ``MPC_VALUES`` committed ``MPC_BITS``-bit values (n = 4,096
    multipliers), both parties as threads over the in-process link on one
    card (``MpcFabric(..., device="cuda")``): each party commits the values
@@ -147,7 +173,7 @@ Phases, one JSON object per line on standard output:
    parties' work).  ``mpc_small``: the JAX package's ``bench.py`` MPC
    configuration (the example gadget, ``BulletproofGens(16, 1)``) at a
    one-way link delay of 0 and 5 ms, median of warm proofs, verified.
-11. ``mpc_tcp``: the collaborative prover's two-process deployment: the
+14. ``mpc_tcp``: the collaborative prover's two-process deployment: the
    integration harness (``mpc_bulletproof_tpu_torch/integration``), both
    parties as OS processes on this card over loopback TCP, started by its
    launcher once the kernels are built.  Every case of its registry must
@@ -158,7 +184,7 @@ Phases, one JSON object per line on standard output:
    processes must include the point kernels and the vec2 family.  Seconds
    per proof beside the threads' median.  A process failing or the
    deadline (``TCP_DEADLINE_S``) passing fails the run.
-12. ``probes``: the three op-rate probes (``probe_chain``,
+15. ``probes``: the three op-rate probes (``probe_chain``,
    ``probe_xor_chain``, ``probe_accum``), every op of their TPU benches at
    the TPU shapes: each held bit for bit to its plain version (NaN equal to
    NaN; ``probe_edges``: also the redesigned two at ``probes.EDGE_*``,
@@ -175,16 +201,17 @@ Phases, one JSON object per line on standard output:
    ``cuobjdump -sass`` of the built library, its instructions a lane-step
    per pipe and the time they take to issue (``sass_issue_ms``;
    ``probe_sass`` lists every row whose loop issues more than it needs).
-13. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
+16. with ``--ab DIR`` only, ``ab`` and ``ab_profile``: the one-block
    ``point_reduce`` this one replaced, built from DIR (an older tree's
    ``mpc_bulletproof_tpu_torch/csrc``), against this tree's at the A bit
    sum's shape: equal as points, device times in turns (base, this, this,
    base); then one warm prove and r1cs_prove proof each profiled in the
    same turns, the base on the former route (that kernel for the A sum, the
    halving tree of ``point_add`` launches for every other sum).
-14. the ``kernels`` summary with launches per path (``pd`` the
+17. the ``kernels`` summary with launches per path (``pd`` the
    party/dealer proof, ``ipp`` one fused IPP proof at 2^20, ``tcp`` both
-   processes of ``mpc_tcp``; for the
+   processes of ``mpc_tcp``, ``gens`` the 2^17 set-up, ``rp_sweep`` and
+   ``r1cs_sweep`` each sweep whole; for the
    scans and Horner also their ptxas registers and spills, launch
    configurations and resident warps a scheduler), the card's
    ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -217,13 +244,32 @@ MSM_LOG2N = 20
 VEC_N = 4096
 MPC_BITS, MPC_VALUES = 64, 64
 MPC_VEC_N = 9 * MPC_BITS * MPC_VALUES  # lanes of the t-polynomial's one Beaver round
-WARM_MPC = 3
+WARM_MPC = 1  # cut from 3: the script's time limit (PERF.md §4)
 MPC_SMALL_LATENCIES = (0.0, 0.005)  # one-way link delay of the example-gadget runs, s
 WARM_MPC_SMALL = 3
-TCP_PROOFS = 3  # collaborative range proofs of the two-process run: 1 cold, 2 warm
+TCP_PROOFS = 2  # collaborative range proofs of the two-process run: 1 cold, 1 warm (cut from 3)
 TCP_DEADLINE_S = 300  # both processes killed, and the run failed, after this
 SHUFFLE_K = 1 << 10
 WARM_R1CS = 3
+# The generator chains: the keccak kernels held to their plain versions at
+# KECCAK_CHAIN_CHECKS (chains, skip, count) and KECCAK_HASH_N messages;
+# BulletproofGens(size, 1) for the reference's sizes (benches/generators.rs),
+# at GENS_WIDE (the capacity of a k = 2^16 shuffle) and at (64, 64), each
+# against pinned.GENS_DIGESTS
+KECCAK_CHAIN_CHECKS = ((2, 0, 256), (128, 64, 64))
+KECCAK_HASH_N = 1 << 18
+GENS_SIZES = (2, 8, 64, 256, 1024)
+GENS_WIDE = 1 << 17
+GENS_AGGREGATED = (64, 64)
+# The reference's sweeps: config 1 (32 bits, one value), config 2 at
+# RP_SWEEP_M values of 64 bits (m = 64 is the main path), the m = 1
+# verification the median of VERIFY_MEDIAN_RUNS calls; the squaring chain
+# at SQUARING_SWEEP multipliers and the shuffle at SHUFFLE_SWEEP (k = 2^10
+# is the r1cs phase)
+RP_SWEEP_M = (1, 2, 4, 8, 16, 32)
+VERIFY_MEDIAN_RUNS = 20
+SQUARING_SWEEP = tuple(1 << i for i in range(1, 11))
+SHUFFLE_SWEEP = tuple(1 << i for i in range(1, 10))
 # The inner-product argument alone: n = 2^k against pinned.IPP_DIGESTS for k
 # in IPP_SWEEP (from n = 64 one warm proof, from n = 2^IPP_WARM_FROM the
 # median of IPP_WARM); at the widths 2^k, k in
@@ -318,6 +364,15 @@ def gcd_needs(fr: bool) -> dict:
     mont = _MONT_COMB["fr" if fr else "fp"]
     return needs((17 * 31, GCD_STEP_NEEDS), (17, {"alu": 40}), (34, _LIN_COMB), (34, mont))
 
+
+# One keccak-f[1600] in 32-bit instructions (csrc/keccak.cu: the 64-bit
+# lanes as halves), a round: the columns' parities 20 LOP3, their rotations
+# by one 10 SHF, theta 50 LOP3, rho 48 SHF (24 lanes rotated, none by 0 or
+# 32), chi 50 LOP3, iota 2 LOP3; all on the ALU.  Its dependent depth, a
+# round: two LOP3 levels for a parity, one SHF, one LOP3, one SHF, one LOP3
+# (iota folds into the next parity): 6, 144 a permutation.
+KECCAK_F_NEEDS = {"alu": 24 * (20 + 10 + 50 + 48 + 50 + 2)}
+KECCAK_F_DEPTH = 24 * 6
 
 # The probes' dependency bound: dependent instructions a chain step puts on
 # one lane's path through the accumulator (loop control and operands that
@@ -514,6 +569,10 @@ REPLACES = {
     "probe_chain": "benches/tpu_mul_bench.py:40",
     "probe_xor_chain": "benches/micro_vpu.py:46",
     "probe_accum": "benches/micro_mul.py:57",
+    # no Pallas site: the native engine's keccak256 that the JAX package's
+    # GeneratorsChain walks with, and hash_to_scalar's second keccak
+    "keccak_chain": "mpc_bulletproof_tpu/generators.py:75 (no Pallas site: native keccak256)",
+    "keccak256_32": "mpc_bulletproof_tpu/transcript.py:40 (no Pallas site: native keccak256)",
 }
 # The entries of csrc/vec2.cu: the elementwise ops and the share plane's expressions.
 VEC2_FAMILY = ("vec2", "beaver_diff", "beaver_combine", "poly3_eval")
@@ -535,6 +594,11 @@ PATH_KERNELS = {
     "tcp": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2",
             "beaver_diff", "beaver_combine", "poly3_eval"},
     "probes": {"probe_chain", "probe_xor_chain", "probe_accum"},
+    "gens": {"keccak_chain", "keccak256_32", "point_reduce", "mod_pow_static"},
+    "rp_sweep": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
+                 "mod_pow_static", "vec2"},
+    "r1cs_sweep": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
+                   "mod_pow_static", "vec2"},
 }
 
 
@@ -1799,6 +1863,322 @@ def r1cs_phase(gpu: str, dev, k: int = SHUFFLE_K) -> dict:
     return res
 
 
+def keccak_chain_bound(chains: int, skip: int, count: int) -> dict:
+    """The chain walk's bound: its bytes and ALU instructions, and the
+    dependency bound, (skip + count) permutations of ``KECCAK_F_DEPTH``
+    dependent instructions each at ``DEP_LATENCY_CYCLES``; the largest."""
+    steps = skip + count
+    bnd = bound(32 * chains * (1 + count), needs((chains * steps, KECCAK_F_NEEDS)))
+    dep_ms = steps * KECCAK_F_DEPTH * DEP_LATENCY_CYCLES / (SM_CLOCK_MHZ * 1e3)
+    if dep_ms > bnd["bound_ms"]:
+        bnd.update(bound_ms=dep_ms, bound_by="operations")
+    return {**bnd, "dependency_bound_ms": dep_ms, "bound_kind": "dependency" if dep_ms >= bnd["bound_ms"] else "issue"}
+
+
+def gens_split(make) -> tuple:
+    """``make()`` (a ``BulletproofGens`` construction) and its seconds split
+    into the walk (``keccak_chain``), the second keccak (``keccak256_32``),
+    the reduction mod r, the fixed-base products, the affine conversion and
+    the host point lists, each part ended by a synchronize; the wrappers
+    are removed again before returning."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch import generators
+    from mpc_bulletproof_tpu_torch.ops import curve_t, kernels, transcript_t
+
+    parts = {"walk": (kernels, "keccak_chain"), "keccak": (kernels, "keccak256_32"),
+             "reduce": (transcript_t, "bytes_to_scalar_mod_r"), "fixed_base": (generators, "fixed_base_points"),
+             "affine": (curve_t, "affine_mont"), "host_lists": (generators, "host_points")}
+    spent = dict.fromkeys(parts, 0.0)
+    orig = {k: getattr(mod, name) for k, (mod, name) in parts.items()}
+
+    def timed(part, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[part] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    for k, (mod, name) in parts.items():
+        setattr(mod, name, timed(k, orig[k]))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = make()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for k, (mod, name) in parts.items():
+            setattr(mod, name, orig[k])
+    return out, {"total": total, **spent, "rest": total - sum(spent.values())}
+
+
+def tensor_gens_digest(bp_gens, n: int, m: int, dev) -> str:
+    """``pinned.gens_digest`` of the generator tensors the device routes
+    read (``device_gens``), computed from their words."""
+    import hashlib
+
+    import numpy as np
+
+    from mpc_bulletproof_tpu_torch.generators import device_gens
+    from mpc_bulletproof_tpu_torch.ops import transcript_t
+
+    h = hashlib.sha256()
+    for pts in device_gens(bp_gens, n, m, dev):
+        x, y, is_id = transcript_t.lazy_points_to_affine(pts)
+        if bool(is_id.any()):
+            raise RuntimeError("gens: an identity generator")
+        be = lambda w: np.flip(transcript_t.felt_bytes_le(w).T.cpu().numpy().astype(np.uint8), axis=1)
+        h.update(np.ascontiguousarray(np.concatenate([be(x), be(y)], axis=1)).tobytes())
+    return h.hexdigest()
+
+
+def gens_phase(gpu: str, dev) -> dict:
+    """The generator chains on the card: ``keccak_chain`` and
+    ``keccak256_32`` against their plain versions; ``BulletproofGens`` at
+    the reference's sizes, at ``GENS_WIDE`` and at ``GENS_AGGREGATED`` against
+    ``pinned.GENS_DIGESTS`` (host lists and device tensors); each set-up's
+    seconds by part; launches and a profile of the wide set-up."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch import BulletproofGens, StarkPoint, generators, pinned
+    from mpc_bulletproof_tpu_torch.ops import keccak_t, kernels
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1600)
+    rows32 = lambda k: torch.randint(0, 256, (k, 32), generator=gen, device=dev, dtype=torch.uint8)
+    err = lambda a, b: float((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0.0
+    checks = []
+    for chains, skip, count in KECCAK_CHAIN_CHECKS:
+        st = rows32(chains)
+        got = kernels.keccak_chain(st, skip, count)
+        want, plain_ms = timed_ms(lambda: keccak_t.keccak_chain_plain(st, skip, count))
+        checks.append({"chains": chains, "skip": skip, "count": count, "equal": bool(torch.equal(got, want)),
+                       "max_abs_err": err(got, want), "plain_ms": plain_ms})
+    # the wide set-up's walk: 2 chains of GENS_WIDE steps, its last steps held to the plain walk
+    wide_st = rows32(2)
+    walk = lambda: kernels.keccak_chain(wide_st, 0, GENS_WIDE)
+    got = walk()
+    tail = min(256, GENS_WIDE - 1)
+    want = keccak_t.keccak_chain_plain(got[:, -tail - 1].contiguous(), 0, tail)
+    checks.append({"chains": 2, "skip": 0, "count": GENS_WIDE, "held": f"the last {tail} steps",
+                   "equal": bool(torch.equal(got[:, -tail:], want)), "max_abs_err": err(got[:, -tail:], want)})
+    chain_dev = device_ms(walk, 2)
+    chain_bnd = keccak_chain_bound(2, 0, GENS_WIDE)
+    chain_row = {"phase": "kernel", "name": "keccak_chain", "path": "gens",
+                 "shape": {"chains": 2, "skip": 0, "count": GENS_WIDE}, "tolerance": 0,
+                 "equal": all(c["equal"] for c in checks), "max_abs_err": max(c["max_abs_err"] for c in checks),
+                 "checks": checks, "kernel_ms": cuda_ms(walk, 2), "device_ms": chain_dev,
+                 "plain_ms": checks[0]["plain_ms"], "plain_shape": list(KECCAK_CHAIN_CHECKS[0]), **chain_bnd,
+                 "gpu": gpu}
+    chain_row["bound_share"] = share(chain_row["bound_ms"], chain_dev)
+    chain_row["serial"] = serial_depth("keccak_f", GENS_WIDE, chain_dev)
+    emit(chain_row)
+    del got, want
+
+    msgs = rows32(KECCAK_HASH_N)
+    got = kernels.keccak256_32(msgs)
+    want, plain_ms = timed_ms(lambda: keccak_t.keccak256_32_plain(msgs))
+    hash_dev = device_ms(lambda: kernels.keccak256_32(msgs), 20)
+    hash_row = {"phase": "kernel", "name": "keccak256_32", "path": "gens", "shape": {"n": KECCAK_HASH_N},
+                "tolerance": 0, "equal": bool(torch.equal(got, want)), "max_abs_err": err(got, want),
+                "kernel_ms": cuda_ms(lambda: kernels.keccak256_32(msgs), 20), "device_ms": hash_dev,
+                "plain_ms": plain_ms, **bound(64 * KECCAK_HASH_N, needs((KECCAK_HASH_N, KECCAK_F_NEEDS))),
+                "gpu": gpu}
+    hash_row["bound_share"] = share(hash_row["bound_ms"], hash_dev)
+    emit(hash_row)
+    del msgs, got, want
+    bad = [r["name"] for r in (chain_row, hash_row) if not r["equal"]]
+    if bad:
+        raise RuntimeError(f"keccak kernels disagree with their plain versions: {bad}")
+
+    # the set-ups; the fixed-base table of the curve generator is built first (once a process)
+    t0 = time.perf_counter()
+    generators.device_point_table(StarkPoint.generator(), dev)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    setups, made = {}, {}
+    for n, m in [(s, 1) for s in GENS_SIZES] + [(GENS_WIDE, 1), GENS_AGGREGATED]:
+        if (n, m) == (GENS_WIDE, 1):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+        g, split = gens_split(lambda: BulletproofGens(n, m, device=dev))
+        if (n, m) == (GENS_WIDE, 1):
+            launches = read_launches("gens")
+        want = pinned.GENS_DIGESTS[(n, m)]
+        host = pinned.gens_digest(g.G(n, m), g.H(n, m))
+        tens = tensor_gens_digest(g, n, m, dev)
+        if host != want or tens != want:
+            raise RuntimeError(f"BulletproofGens({n}, {m}): digests {host} (host), {tens} (device) != pinned {want}")
+        setups[f"{n}x{m}"] = {"chain_steps": n, "chains": 2 * m, "s": split}
+        made[(n, m)] = g
+    res = {"phase": "gens", "digests_equal": True, "table_s": table_s, "setups": setups,
+           "wide_s": setups[f"{GENS_WIDE}x1"]["s"]["total"], "launches": launches, "gpu": gpu}
+    emit(res)
+    prof = profile_run(lambda: BulletproofGens(GENS_WIDE, 1, device=dev),
+                       res["wide_s"] * 1e6, gpu, "gens")
+    emit(prof)
+    if not prof["counts_match"]:
+        raise RuntimeError(f"gens: the profile's counts differ from the launch counters: {prof['by_source']}")
+    res.update(checks={"keccak_chain": chain_row, "keccak256_32": hash_row}, gens=made)
+    return res
+
+
+def rp_sweep_phase(gpu: str, dev, mp: dict) -> dict:
+    """The reference's range-proof sweep on the main path's (64, 64)
+    generators: config 1 (``prove_single`` / ``verify_single`` on the
+    README's 32-bit value) and config 2 at ``RP_SWEEP_M`` values, each a
+    cold proof against ``pinned.DIGESTS``, a warm one and a verification;
+    at m = 1 the median of ``VERIFY_MEDIAN_RUNS`` verifications with its
+    host terms and MSM, and a tampered copy rejected."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch import HashChainTranscript, RangeProof, VerificationError, pinned
+    from mpc_bulletproof_tpu_torch.ops import backend, kernels
+
+    bp_gens, pc_gens = mp["bp_gens"], mp["pc_gens"]
+    tr = lambda: HashChainTranscript(pinned.TRANSCRIPT_LABEL)
+
+    def prove(n, values, blindings):
+        t = tr()
+        proof, V = RangeProof.prove_multiple(bp_gens, pc_gens, t, values, blindings, n, device=dev,
+                                             rng_bytes=pinned.det_stream())
+        digest = pinned.proof_digest(proof, V, t.state)
+        if digest != pinned.DIGESTS[(n, len(values))]:
+            raise RuntimeError(f"range proof ({n}, {len(values)}): digest {digest} != pinned")
+        return proof, V
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+    (v1,), (b1,) = pinned.single_inputs()
+    t0 = time.perf_counter()
+    t = tr()
+    proof1, V1 = RangeProof.prove_single(bp_gens, pc_gens, t, v1, b1, 32, device=dev, rng_bytes=pinned.det_stream())
+    single_s = time.perf_counter() - t0
+    if pinned.proof_digest(proof1, [V1], t.state) != pinned.DIGESTS[(32, 1)]:
+        raise RuntimeError("config 1: prove_single's digest != pinned")
+    t0 = time.perf_counter()
+    proof1.verify_single(bp_gens, pc_gens, tr(), V1, 32, device=dev)
+    single_verify_s = time.perf_counter() - t0
+
+    rows = {}
+    for m in RP_SWEEP_M:
+        values, blindings = pinned.inputs(64, m)
+        t0 = time.perf_counter()
+        proof, V = prove(64, values, blindings)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prove(64, values, blindings)
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proof.verify_multiple(bp_gens, pc_gens, tr(), V, 64, device=dev)
+        rows[m] = {"cold_prove_s": cold_s, "warm_prove_s": warm_s, "verify_s": time.perf_counter() - t0,
+                   "proof_bytes": len(proof.to_bytes())}
+        if m == 1:
+            one = (proof, V)
+    launches = read_launches("rp_sweep")
+
+    proof, V = one
+    verify = lambda p=proof: p.verify_multiple(bp_gens, pc_gens, tr(), V, 64, device=dev)
+    try:
+        verify(tampered(proof, "t_x+1"))
+    except VerificationError:
+        pass
+    else:
+        raise RuntimeError("rp_sweep: verify accepted a tampered m = 1 proof")
+    # interleaved, so the split and the whole see the same host
+    (g, h), scalars, points = proof._verification_terms(bp_gens, pc_gens, tr(), V, 64)
+    whole, terms, msm = [], [], []
+    for _ in range(VERIFY_MEDIAN_RUNS):
+        whole += host_ms(verify, 1)
+        terms += host_ms(lambda: proof._verification_terms(bp_gens, pc_gens, tr(), V, 64), 1)
+        msm += host_ms(lambda: backend.gens_msm(bp_gens, scalars + g + h, points, 64, 1, device=dev), 1)
+    res = {"phase": "rp_sweep", "digests_equal": True, "verified": True,
+           "config1": {"n": 32, "m": 1, "value": v1, "prove_s": single_s, "verify_s": single_verify_s},
+           "config2": {str(m): r for m, r in rows.items()},
+           "m1_verify": {"runs": VERIFY_MEDIAN_RUNS, "msm_points": len(scalars) + len(g) + len(h),
+                         "us_median": statistics.median(whole) * 1e3,
+                         "host_terms_us_median": statistics.median(terms) * 1e3,
+                         "msm_us_median": statistics.median(msm) * 1e3,
+                         "ms": whole, "host_terms_ms": terms, "msm_ms": msm,
+                         "tampered_t_x+1_rejected": True},
+           "launches": launches, "phase_s": time.perf_counter() - t_phase, "gpu": gpu}
+    emit(res)
+    return res
+
+
+def r1cs_sweep_phase(gpu: str, dev, gens) -> dict:
+    """The reference's R1CS sweeps on ``gens`` (``BulletproofGens(1024,
+    1)``): the squaring chain at ``SQUARING_SWEEP`` multipliers
+    (``pinned.squaring_chain``, benches/r1cs.rs) and the shuffle at
+    ``SHUFFLE_SWEEP`` (benches/shuffle.rs), one proof each against its
+    pinned digest, split into phase MSMs, IPP and host rest, each
+    verified; the rest's seconds a multiplier size the shuffles above 2^10."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch import PedersenGens, Prover, Scalar, Verifier, pinned
+    from mpc_bulletproof_tpu_torch.models.r1cs.gadgets import shuffle_gadget
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    pc_gens = PedersenGens()
+    value = Scalar(pinned.squaring_value())
+
+    def run(multipliers, want, prover, verifier):
+        """``prover()`` -> (a prover with its circuit, its commitments, the
+        seconds they took); ``verifier(V)`` -> a verifier with the circuit."""
+        p, V, commit_s = prover()
+        out = []
+        split = prove_split(lambda: out.append(p.prove(gens, device=dev, rng_bytes=pinned.det_stream())))
+        digest = pinned.proof_digest(out[0], V, p.transcript().state)
+        if digest != want:
+            raise RuntimeError(f"r1cs_sweep: digest {digest} != pinned {want} ({multipliers} multipliers)")
+        t0 = time.perf_counter()
+        verifier(V).verify(out[0], gens, device=dev)
+        return {"multipliers": multipliers, "commit_s": commit_s, "prove_split_s": split,
+                "rest_s_per_multiplier": split["rest"] / multipliers, "verify_s": time.perf_counter() - t0,
+                "proof_bytes": len(out[0].to_bytes())}
+
+    def squaring(cs, n):
+        pinned.squaring_chain(cs, n, value)
+        return cs
+
+    def shuffle_prover(k):
+        inputs, outputs, blindings = pinned.shuffle_inputs(k)
+        t0 = time.perf_counter()
+        p = Prover(pc_gens, pinned.shuffle_transcript(k))
+        pairs = [p.commit(v, b) for v, b in zip(inputs + outputs, blindings)]
+        commit_s = time.perf_counter() - t0
+        shuffle_gadget(p, [var for _, var in pairs[:k]], [var for _, var in pairs[k:]])
+        return p, [c for c, _ in pairs], commit_s
+
+    def shuffle_verifier(k, V):
+        v = Verifier(pc_gens, pinned.shuffle_transcript(k))
+        vs = [v.commit(c) for c in V]
+        shuffle_gadget(v, vs[:k], vs[k:])
+        return v
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+    sq = {n: run(n, pinned.SQUARING_DIGESTS[n],
+                 lambda n=n: (squaring(Prover(pc_gens, pinned.squaring_transcript(n)), n), [], 0.0),
+                 lambda V, n=n: squaring(Verifier(pc_gens, pinned.squaring_transcript(n)), n))
+          for n in SQUARING_SWEEP}
+    sh = {k: run(2 * (k - 1), pinned.SHUFFLE_DIGESTS[k], lambda k=k: shuffle_prover(k),
+                 lambda V, k=k: shuffle_verifier(k, V))
+          for k in SHUFFLE_SWEEP}
+    launches = read_launches("r1cs_sweep")
+    res = {"phase": "r1cs_sweep", "digests_equal": True, "verified": True,
+           "squaring": {str(n): r for n, r in sq.items()}, "shuffle": {str(k): r for k, r in sh.items()},
+           "launches": launches, "phase_s": time.perf_counter() - t_phase, "gpu": gpu}
+    emit(res)
+    return res
+
+
 def ipp_inputs_on(n: int, dev) -> dict:
     """``pinned.ipp_inputs(n)`` for ``InnerProductProof.create`` on ``dev``:
     host lists below ``_DEVICE_MIN`` (the host route; the generators made
@@ -2742,7 +3122,9 @@ def profile_run(fn, warm_us: float, gpu: str, what: str, extra: dict | None = No
     can drop launches).  ``extra``: ``{kernel function: (label, [launches
     counted])}`` for kernels outside this tree's sources (the A/B's
     baseline; the count is read after the run).  The profiler slows the host, so the idle share is also
-    given against the unprofiled median time."""
+    given against the unprofiled median time.  The session opens with
+    :data:`PROFILER_PAD` sleeps, left out of every figure: a session
+    records none of its first ~20 to 25 launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2751,13 +3133,16 @@ def profile_run(fn, warm_us: float, gpu: str, what: str, extra: dict | None = No
     extra = extra or {}
     torch.cuda.synchronize()
     kernels.reset_launches()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILER_PAD):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     counted = dict(kernels.launches)
-    rows = device_rows(prof)
+    rows = [r for r in device_rows(prof) if "spin_kernel" not in r[1]]
     busy_us = sum(r[0] for r in rows)
     source_of = {**kernel_functions(), **{f: label for f, (label, _) in extra.items()}}
     by_source = {src: {"device_us": 0.0, "recorded": 0, "counted": 0} for src in set(source_of.values())}
@@ -2945,7 +3330,7 @@ def kernel_summary(checks: dict, paths: dict, ptxas: dict) -> list:
                       "gcd_vs_ladder", "plan", "launches_per_call", "dependency_bound_ms", "plans_check",
                       "public_b", "vs_composed", "clock_mhz_under_load", "pipe", "pipe_bound_ms",
                       "bytes_bound_ms", "bound_share", "dependency_share", "cycles_per_step",
-                      "sass_over_need"):
+                      "sass_over_need", "checks", "bound_kind", "plain_shape"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "point_reduce":   # the fold and every tree depth
@@ -2993,11 +3378,15 @@ def main() -> int:
     SM_CLOCK_MHZ = measure_clock(dev)
     emit({"phase": "clock", "sm_clock_mhz_under_load": SM_CLOCK_MHZ, "gpu": gpu})
     checks = check_kernels(gpu, dev)
+    gn = gens_phase(gpu, dev)
+    checks.update(gn["checks"])
     mp = main_path(gpu, dev)
     vf = verify_phase(gpu, dev, mp)
+    rs = rp_sweep_phase(gpu, dev, mp)
     pd = party_dealer_phase(gpu, dev, mp)
     ms = msm_phase(gpu, dev)
     rc = r1cs_phase(gpu, dev)
+    r1s = r1cs_sweep_phase(gpu, dev, gn["gens"][(1024, 1)])
     ip = ipp_phase(gpu, dev)
     mc = mpc_phase(gpu, dev)
     tcp = mpc_tcp_phase(gpu, dev, mc)
@@ -3008,8 +3397,8 @@ def main() -> int:
 
     paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"],
              **rc["launches"], "ipp": ip["launches"], "mpc": mc["launches"], "pd": pd["launches"],
-             "tcp": tcp["launches"],
-             "probes": pr["launches"]}
+             "tcp": tcp["launches"], "probes": pr["launches"], "gens": gn["launches"],
+             "rp_sweep": rs["launches"], "r1cs_sweep": r1s["launches"]}
     summary = kernel_summary(checks, paths, entries)
     emit({"kernels": summary})
     print(smi_line(), flush=True)

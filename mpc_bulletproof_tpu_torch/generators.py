@@ -6,9 +6,13 @@ as the JAX package's.  A chain is a keccak hash walk::
     state_0 = keccak256(pad_label(b"GeneratorsChain" || label))
     state_{i+1} = keccak256(state_i);  generator_i = hash_to_scalar(state_{i+1}) G
 
-The 2m chains walk side by side on the host (:func:`.ops.keccak.keccak256_batch32`);
-the ``scalar G`` products run through the port's fixed-base path
-(:func:`.ops.msm.fixed_commit`) on ``device``, then come back as host points.
+:class:`BulletproofGens` walks its 2m chains on ``device`` (:func:`chain_scalars`:
+the ``keccak_chain`` and ``keccak256_32`` kernels of :mod:`.ops.kernels`, their
+plain versions on the CPU), makes the ``scalar G`` products there through the
+fixed-base path (:func:`.ops.msm.fixed_commit`), keeps the affine points
+there for the device routes (:func:`device_gens`), and builds the host
+point lists from the same tensors.  :class:`GeneratorsChain` walks one
+chain a step at a time on the host.
 """
 
 from __future__ import annotations
@@ -16,10 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .constants import R
 from .ops.curve import StarkPoint
 from .ops.field import Scalar
-from .ops.keccak import keccak256, keccak256_batch32, pad_label
+from .ops.keccak import keccak256, keccak256_batch, pad_label
 from .transcript import hash_to_scalar
 from .utils.device import resolve_device
 
@@ -64,16 +67,20 @@ def fixed_base_points(sc: torch.Tensor, pt: StarkPoint) -> torch.Tensor:
     return torch.cat(parts, dim=-1).contiguous()
 
 
+def host_points(x: torch.Tensor, y: torch.Tensor, is_id: torch.Tensor) -> list[StarkPoint]:
+    """Standard-form affine ``(NW, k)`` coordinates and flags -> host points."""
+    from .ops.limb import words_to_ints
+
+    xs, ys, ids = words_to_ints(x.cpu()), words_to_ints(y.cpu()), is_id.cpu().tolist()
+    return [StarkPoint.identity() if i else StarkPoint(a, b) for a, b, i in zip(xs, ys, ids)]
+
+
 def fixed_base_mul(scalars, pt: StarkPoint, device) -> list[StarkPoint]:
     """``[s pt for s in scalars]`` through the fixed-base table on ``device``."""
     from .ops import curve_t, transcript_t
-    from .ops.limb import words_to_ints
 
     sc = torch.as_tensor(curve_t.scalars_from_host(scalars), device=device)
-    pts = fixed_base_points(sc, pt)
-    x, y, is_id = transcript_t.lazy_points_to_affine(pts)
-    xs, ys, ids = words_to_ints(x), words_to_ints(y), is_id.cpu().tolist()
-    return [StarkPoint.identity() if i else StarkPoint(a, b) for a, b, i in zip(xs, ys, ids)]
+    return host_points(*transcript_t.lazy_points_to_affine(fixed_base_points(sc, pt)))
 
 
 def gens_cache_entry(obj) -> dict:
@@ -86,21 +93,18 @@ def gens_cache_entry(obj) -> dict:
 
 def device_gens(bp_gens: "BulletproofGens", n: int, m: int, device):
     """Aggregated ``(G(n, m), H(n, m))`` as ``(3, NW, nm)`` tensors on
-    ``device``, uploaded once per gens object.  One party's vectors of
-    every length are copies of the slice of one upload of its capacity."""
-    from .ops import curve_t
+    ``device``: slices of the affine points ``bp_gens`` made on its own
+    device (:meth:`BulletproofGens.increase_capacity`), cached per shape."""
+    from .ops.limb import NW
 
     per = gens_cache_entry(bp_gens)
     key = ("gens", n, m, str(device))
     if key not in per:
-        if m == 1 and n < bp_gens.gens_capacity:
-            full = device_gens(bp_gens, bp_gens.gens_capacity, 1, device)
-            per[key] = tuple(g[..., :n].contiguous() for g in full)
-        else:
-            per[key] = tuple(
-                torch.as_tensor(curve_t.points_from_host(pts), device=device)
-                for pts in (bp_gens.G(n, m), bp_gens.H(n, m))
-            )
+        if n > bp_gens.gens_capacity or m > bp_gens.party_capacity:
+            raise ValueError(f"generators for ({n}, {m}) exceed the capacity "
+                             f"({bp_gens.gens_capacity}, {bp_gens.party_capacity})")
+        chains = per["chains"].to(device)                   # (3, NW, 2, parties, capacity)
+        per[key] = tuple(chains[:, :, i, :m, :n].reshape(3, NW, m * n).contiguous() for i in (0, 1))
     return per[key]
 
 
@@ -166,24 +170,23 @@ class GeneratorsChain:
         return fixed_base_mul(scalars, gen, dev)
 
 
-def chain_scalars(labels: list[bytes], skip: int, count: int) -> list[list[Scalar]]:
-    """Scalars ``skip .. skip + count - 1`` of each labelled chain, the chains
-    walked side by side."""
-    states = np.frombuffer(b"".join(_chain_start(l) for l in labels), np.uint8)
-    states = states.reshape(len(labels), 32)
-    for _ in range(skip):
-        states = keccak256_batch32(states)
-    steps = []
-    for _ in range(count):
-        states = keccak256_batch32(states)
-        steps.append(states)
-    if not steps:
-        return [[] for _ in labels]
-    walked = np.stack(steps, axis=1).reshape(-1, 32)      # (chains * count, 32)
-    high = keccak256_batch32(walked)
-    both = np.concatenate([walked, high], axis=1).tobytes()
-    vals = [int.from_bytes(both[64 * i : 64 * i + 64], "little") % R for i in range(walked.shape[0])]
-    return [[Scalar(v) for v in vals[c * count : (c + 1) * count]] for c in range(len(labels))]
+def chain_scalars(labels: list[bytes], skip: int, count: int, device) -> torch.Tensor:
+    """Scalars ``skip .. skip + count - 1`` of each labelled chain as
+    ``(NW, len(labels) count)`` canonical words on ``device``, chain by
+    chain: the walk (``kernels.keccak_chain``), the second keccak of
+    ``hash_to_scalar`` over every walked state (``kernels.keccak256_32``),
+    then ``LE(state || keccak256(state)) mod r`` on the device
+    (:func:`.ops.transcript_t.bytes_to_scalar_mod_r`)."""
+    from .ops import kernels, transcript_t
+
+    msgs = [pad_label(b"GeneratorsChain" + l) for l in labels]
+    if len({len(m) for m in msgs}) > 1:
+        raise ValueError("chain_scalars: the labels must pad to one length")
+    starts = keccak256_batch(np.frombuffer(b"".join(msgs), np.uint8).reshape(len(labels), -1))  # state_0
+    walked = kernels.keccak_chain(torch.as_tensor(starts, device=device), skip, count)
+    walked = walked.reshape(-1, 32)
+    both = torch.cat([walked, kernels.keccak256_32(walked)], dim=1)        # (C count, 64)
+    return transcript_t.bytes_to_scalar_mod_r(both.T.to(torch.int64))
 
 
 def _party_label(prefix: bytes, party_index: int) -> bytes:
@@ -205,13 +208,24 @@ class BulletproofGens:
         self.increase_capacity(gens_capacity)
 
     def increase_capacity(self, new_capacity: int) -> None:
+        """Extend every party's chains to ``new_capacity``: the new scalars
+        and points made on the gens' device and appended to the affine
+        ``(3, NW, 2, parties, capacity)`` tensor cached for it (G then H),
+        the host lists built from the same points."""
         if self.gens_capacity >= new_capacity:
             return
+        from .ops import curve_t
+        from .ops.limb import NW
+
         extra = new_capacity - self.gens_capacity
         m = self.party_capacity
         labels = [_party_label(b"G", i) for i in range(m)] + [_party_label(b"H", i) for i in range(m)]
-        chains = chain_scalars(labels, self.gens_capacity, extra)
-        pts = fixed_base_mul([s for ch in chains for s in ch], StarkPoint.generator(), self.device)
+        scalars = chain_scalars(labels, self.gens_capacity, extra, self.device)
+        mont, x, y, is_id = curve_t.affine_mont(fixed_base_points(scalars, StarkPoint.generator()))
+        per = gens_cache_entry(self)
+        new = mont.reshape(3, NW, 2, m, extra)
+        per["chains"] = new if "chains" not in per else torch.cat([per["chains"], new], dim=-1)
+        pts = host_points(x, y, is_id)
         for c in range(2 * m):
             vec = self.G_vec[c] if c < m else self.H_vec[c - m]
             vec.extend(pts[c * extra : (c + 1) * extra])

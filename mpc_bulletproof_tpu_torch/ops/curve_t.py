@@ -153,12 +153,17 @@ def to_affine_mont(pts: torch.Tensor) -> torch.Tensor:
     form with ``Z in {0, 1_M}`` (the :func:`points_from_host` invariant), so
     they can be gathered as table records (:mod:`.msm`).  One batched Fermat
     inversion (``kernels.mod_pow_static``)."""
+    return affine_mont(pts)[0]
+
+
+def affine_mont(pts: torch.Tensor):
+    """:func:`to_affine_mont`'s points, and beside them the standard-form
+    affine ``(x, y, is_id)`` they were made from (``(NW, k)`` coordinates)."""
     from . import transcript_t as tj
     from .limb import mont_mul
 
     x, y, is_id = tj.lazy_points_to_affine(pts)
     r2 = _const("fp_r2", pts.device, lambda: torch.as_tensor(ints_to_words([FP.r2])))
-    x = mont_mul(x, r2, FP)  # x R
-    y = mont_mul(y, r2, FP)
     ident = identity((pts.shape[-1],), pts.device)
-    return _point_select(is_id, ident, torch.stack([x, y, ident[1]], dim=0))
+    mont = torch.stack([mont_mul(x, r2, FP), mont_mul(y, r2, FP), ident[1]], dim=0)  # x R, y R
+    return _point_select(is_id, ident, mont), x, y, is_id

@@ -1,12 +1,15 @@
-"""Keccak-256 on tensors, for the fused prover's on-card Fiat-Shamir transcript.
+"""Keccak-256 on tensors: the fused prover's on-card Fiat-Shamir transcript,
+and the plain versions of the generator chains' keccak kernels.
 
 Mirrors :mod:`.keccak` bit for bit: keccak-f[1600] and keccak-256 with the
-original padding ``0x01 .. 0x80``.  The state is a ``(25,)`` int64 tensor
-of 64-bit lanes (index ``x + 5 y``); int64 is signed, so every right shift
-in a rotation is masked to the bits it brings in.  Messages are ``(len,)``
-int64 byte tensors of a length known to the caller; every transcript
-absorb of the protocol fits one block (at most 135 bytes), so only that
-path exists.
+original padding ``0x01 .. 0x80``.  A state is a ``(25, *batch)`` int64
+tensor of 64-bit lanes (index ``x + 5 y``); int64 is signed, so every right
+shift in a rotation is masked to the bits it brings in.  Transcript
+messages are ``(len,)`` int64 byte tensors of a length known to the
+caller; every transcript absorb of the protocol fits one block (at most
+135 bytes), so only that path exists.  :func:`keccak_chain_plain` and
+:func:`keccak256_32_plain` take ``(k, 32)`` uint8 byte rows: the plain
+versions of ``csrc/keccak.cu`` (wrappers in :mod:`.kernels`).
 """
 
 from __future__ import annotations
@@ -50,21 +53,23 @@ def _rotl(a: torch.Tensor, r, r_inv, mask) -> torch.Tensor:
 
 
 def keccak_f1600(a: torch.Tensor) -> torch.Tensor:
-    """One permutation of a ``(25,)`` int64 lane state."""
-    dev = a.device
+    """One permutation of a ``(25, *batch)`` int64 lane state."""
+    dev, shape = a.device, a.shape
+    a = a.reshape(25, -1)
     rot, rot_inv, rot_mask, pi, chi1, chi2 = _tables(dev)
+    rot, rot_inv, rot_mask = rot[:, None], rot_inv[:, None], rot_mask[:, None]
     th_m1 = _const("keccak_thm1", dev, lambda: torch.as_tensor(_TH_M1))
     th_p1 = _const("keccak_thp1", dev, lambda: torch.as_tensor(_TH_P1))
-    iota = _const("keccak_iota", dev, lambda: torch.as_tensor(_IOTA))
+    iota = _const("keccak_iota", dev, lambda: torch.as_tensor(_IOTA))[:, :, None]
     for rnd in range(24):
-        g = a.reshape(5, 5)  # [y, x]
+        g = a.reshape(5, 5, -1)  # [y, x, batch]
         c = g[0] ^ g[1] ^ g[2] ^ g[3] ^ g[4]
         cp = c[th_p1]
         d = c[th_m1] ^ ((cp << 1) | ((cp >> 63) & 1))
-        a = (g ^ d[None, :]).reshape(25)
+        a = (g ^ d[None]).reshape(25, -1)
         b = _rotl(a, rot, rot_inv, rot_mask)[pi]
         a = b ^ (~b[chi1] & b[chi2]) ^ iota[rnd]
-    return a
+    return a.reshape(shape)
 
 
 def keccak256(data: torch.Tensor, length: int) -> torch.Tensor:
@@ -82,3 +87,51 @@ def keccak256(data: torch.Tensor, length: int) -> torch.Tensor:
     a = torch.cat([lanes, lanes.new_zeros(8)])
     a = keccak_f1600(a)
     return ((a[:4, None] >> sh) & 0xFF).reshape(32)
+
+
+# -- the generator chains: 32-byte messages in (k, 32) uint8 rows ------------
+
+_PAD_LANE_4 = 0x01                 # the padding byte after a 32-byte message
+_PAD_LANE_16 = -(1 << 63)          # the final 0x80 in byte 135, as int64
+
+
+def _lanes32(rows: torch.Tensor) -> torch.Tensor:
+    """``(k, 32)`` uint8 -> ``(4, k)`` int64 little-endian lanes."""
+    sh = _const("keccak_sh8", rows.device, lambda: torch.arange(0, 64, 8, dtype=torch.int64))
+    return (rows.to(torch.int64).reshape(-1, 4, 8) << sh).sum(dim=-1).T  # disjoint bits: sum == or
+
+
+def _rows32(lanes: torch.Tensor) -> torch.Tensor:
+    """``(4, *batch)`` int64 lanes -> ``(*batch, 32)`` uint8 rows."""
+    sh = _const("keccak_sh8", lanes.device, lambda: torch.arange(0, 64, 8, dtype=torch.int64))
+    out = (lanes.movedim(0, -1)[..., None] >> sh) & 0xFF
+    return out.reshape(*lanes.shape[1:], 32).to(torch.uint8)
+
+
+def _hash32_lanes(m: torch.Tensor) -> torch.Tensor:
+    """keccak256 of ``(4, k)`` message lanes -> ``(4, k)`` digest lanes."""
+    a = m.new_zeros((25, m.shape[-1]))
+    a[:4] = m
+    a[4] = _PAD_LANE_4
+    a[16] = _PAD_LANE_16
+    return keccak_f1600(a)[:4]
+
+
+def keccak256_32_plain(msgs: torch.Tensor) -> torch.Tensor:
+    """keccak256 of each ``(N, 32)`` uint8 row -> ``(N, 32)``."""
+    return _rows32(_hash32_lanes(_lanes32(msgs)))
+
+
+def keccak_chain_plain(starts: torch.Tensor, skip: int, count: int) -> torch.Tensor:
+    """Each ``(C, 32)`` start row walked ``skip`` steps of ``s <- keccak256(s)``
+    unwritten, then ``count`` steps -> ``(C, count, 32)`` states."""
+    s = _lanes32(starts)
+    for _ in range(skip):
+        s = _hash32_lanes(s)
+    steps = []
+    for _ in range(count):
+        s = _hash32_lanes(s)
+        steps.append(s)
+    if not steps:
+        return starts.new_zeros((starts.shape[0], 0, 32))
+    return _rows32(torch.stack(steps, dim=-1))                 # (4, C, count) -> (C, count, 32)

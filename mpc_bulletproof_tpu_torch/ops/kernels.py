@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels, their wrappers and their plain versions.
 
-Thirteen kernels.  Ten carry the point, inverse and field work, each
+Fifteen kernels.  Ten carry the point, inverse and field work, each
 replacing one Pallas kernel of ``mpc_bulletproof_tpu/ops/kernels.py``:
 
 ==============================  =======================  =======================
@@ -22,14 +22,18 @@ The last three compute the device share plane's fixed expressions, which
 the JAX package composes from ``_vec2``'s ops, in one launch each.  Three
 more, ``probe_chain``, ``probe_xor_chain`` and ``probe_accum``
 (``probes.cu``, wrappers in :mod:`.probes`), replace the Pallas op-rate
-probes of the JAX package's benches.
+probes of the JAX package's benches.  The last two, ``keccak_chain`` and
+``keccak256_32`` (``keccak.cu``), replace no Pallas kernel: they walk the
+generator chains, which the JAX package walks with its native engine's
+keccak on the host (:mod:`..generators`).
 
 The provers and the verifiers launch ``point_add``, ``point_scan_steps_inner``,
 ``point_horner_multi``, ``point_reduce`` and ``mod_pow_static``; the
 collaborative prover's device share plane (:mod:`..parallel.device_shares`)
 launches the vector ops and the three share-plane entries;
 ``point_scan_steps`` and the probes serve callers of the library (the JAX
-package calls them only from its benches).
+package calls them only from its benches); ``BulletproofGens`` launches
+the two keccak kernels.
 
 Every wrapper checks dtype, shape and contiguity the same way for every
 device.  For a tensor on the CPU it runs the plain PyTorch version beside
@@ -57,6 +61,7 @@ from pathlib import Path
 import torch
 
 from .curve_t import _point_add, identity
+from .keccak_t import keccak256_32_plain, keccak_chain_plain
 from .limb import (FP, FR, NW, ModParams, from_pieces, ints_to_words, mod_add, mod_mul, mod_sub,
                    mont_mul_p, to_pieces)
 
@@ -83,6 +88,8 @@ KERNELS = {
     "probe_chain": ("probes.cu", "bp_probe_chain", [_P, _P, _P, _LL, _I, _I, _P]),
     "probe_xor_chain": ("probes.cu", "bp_probe_xor_chain", [_P, _P, _LL, _I, _I, _P]),
     "probe_accum": ("probes.cu", "bp_probe_accum", [_P, _P, _P, _LL, _I, _I, _P]),
+    "keccak_chain": ("keccak.cu", "bp_keccak_chain", [_P, _P, _LL, _LL, _LL, _P]),
+    "keccak256_32": ("keccak.cu", "bp_keccak256_32", [_P, _P, _LL, _P]),
 }
 
 # Launches per kernel since the last reset_launches(); only a launch of the
@@ -661,4 +668,52 @@ def poly3_eval(coeffs: torch.Tensor, x: int) -> torch.Tensor:
         return poly3_eval_plain(coeffs, int(x))
     out = torch.empty((2, NW, k), dtype=torch.int64, device=coeffs.device)
     _launch("poly3_eval", coeffs.data_ptr(), out.data_ptr(), k, *words)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# keccak_chain, keccak256_32: the generator chains
+# ---------------------------------------------------------------------------
+
+def _check_rows32(t: torch.Tensor, what: str) -> str:
+    """Validate ``(k, 32)`` uint8 byte rows; returns the device type.  The
+    kernel reads them as 64-bit words, so on the card they must be 8-byte
+    aligned."""
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.uint8:
+        raise TypeError(f"{what}: expected a uint8 tensor")
+    if t.dim() != 2 or t.shape[1] != 32:
+        raise ValueError(f"{what}: expected (k, 32) byte rows, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    if t.device.type == "cuda" and t.data_ptr() % 8:
+        raise ValueError(f"{what}: the kernel needs 8-byte aligned rows")
+    return t.device.type
+
+
+def keccak_chain(starts: torch.Tensor, skip: int, count: int) -> torch.Tensor:
+    """Walk each of the ``(C, 32)`` start states ``skip`` steps of
+    ``s <- keccak256(s)`` without writing, then ``count`` steps, and return
+    those ``(C, count, 32)`` states (a generator chain's walk, one chain a
+    thread)."""
+    dev = _check_rows32(starts, "keccak_chain starts")
+    skip, count = int(skip), int(count)
+    if skip < 0 or count < 0:
+        raise ValueError("keccak_chain: skip and count must be >= 0")
+    if dev == "cpu":
+        return keccak_chain_plain(starts, skip, count)
+    out = torch.empty((starts.shape[0], count, 32), dtype=torch.uint8, device=starts.device)
+    if starts.shape[0] and count:
+        _launch("keccak_chain", starts.data_ptr(), out.data_ptr(), starts.shape[0], skip, count)
+    return out
+
+
+def keccak256_32(msgs: torch.Tensor) -> torch.Tensor:
+    """keccak256 of each of the ``(N, 32)`` byte rows, all in parallel."""
+    if _check_rows32(msgs, "keccak256_32 msgs") == "cpu":
+        return keccak256_32_plain(msgs)
+    out = torch.empty_like(msgs)
+    if msgs.shape[0]:
+        _launch("keccak256_32", msgs.data_ptr(), out.data_ptr(), msgs.shape[0])
     return out

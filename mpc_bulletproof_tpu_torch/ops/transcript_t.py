@@ -46,8 +46,11 @@ def challenge_scalar(state: torch.Tensor, label: bytes):
 
 
 def bytes_to_scalar_mod_r(bytes64: torch.Tensor) -> torch.Tensor:
-    """Read 64 bytes little-endian, reduce mod r -> ``(NW, 1)`` canonical."""
-    pieces = (bytes64[0::2] | (bytes64[1::2] << 8))[:, None]  # (32, 1) 16-bit
+    """Read ``(64, *batch)`` int64 bytes little-endian, reduce mod r ->
+    ``(NW, *batch)`` canonical; one ``(64,)`` value gives ``(NW, 1)``."""
+    if bytes64.dim() == 1:
+        bytes64 = bytes64[:, None]
+    pieces = bytes64[0::2] | (bytes64[1::2] << 8)  # (32, *batch) 16-bit
     return limb.reduce_512(pieces, FR)
 
 

@@ -40,6 +40,38 @@ package's native engine)::
     JAX_PLATFORMS=cpu python -c \
         "from tests.test_torch_ipp import jax_ipp_digest; print(jax_ipp_digest(1 << 16))"
 
+The reference's sweeps (``chip_smoke.py``'s ``gens``, ``rp_sweep`` and
+``r1cs_sweep`` phases) add four families, each from the JAX package's
+host path with its native engine:
+
+* :data:`GENS_DIGESTS`: per ``(n, m)``, :func:`gens_digest` of the affine
+  points of ``BulletproofGens(n, m)`` (2^17 takes ~70 s)::
+
+    JAX_PLATFORMS=cpu python -c "from mpc_bulletproof_tpu import BulletproofGens as B; \
+        from mpc_bulletproof_tpu_torch import pinned; n, m = 1 << 17, 1; g = B(n, m); \
+        pts = lambda v: [v[j][i] for j in range(m) for i in range(n)]; \
+        print(pinned.gens_digest(pts(g.G_vec), pts(g.H_vec)))"
+
+* :data:`DIGESTS` for config 1 (``(32, 1)``, :func:`single_inputs`) and
+  config 2 at ``(64, m)``, m = 1 to 32, on :func:`inputs` as above::
+
+    BP_FORCE_BACKEND=host JAX_PLATFORMS=cpu python -c "from tests.test_torch_range_proof \
+        import jax_host_prove; from mpc_bulletproof_tpu_torch import pinned; \
+        p, V, s, _ = jax_host_prove(32, 1); print(pinned.proof_digest(p, V, s))"
+
+* :data:`SHUFFLE_DIGESTS` for k = 2 to 512 (and 1024 above)::
+
+    JAX_PLATFORMS=cpu python -c "from tests.test_torch_sweeps import jax_shuffle_digest; \
+        print(jax_shuffle_digest(512))"
+
+* :data:`SQUARING_DIGESTS` for n = 2 to 1024: the R1CS bench's squaring
+  chain (:func:`squaring_chain` on :func:`squaring_value`, from
+  :func:`squaring_transcript`), the digest over the proof, no
+  commitments and the final transcript state::
+
+    JAX_PLATFORMS=cpu python -c "from tests.test_torch_sweeps import jax_squaring_digest; \
+        print(jax_squaring_digest(1024))"
+
 ``chip_smoke.py`` holds the card's proofs to these digests, and the CPU
 tests recompute them from the JAX package.
 """
@@ -59,15 +91,62 @@ SHUFFLE_LABEL = b"ShuffleProofTest"
 MPC_LABEL = b"mpc-range"
 IPP_LABEL = b"ipp-alone"
 IPP_SEED = 1103
+SQUARING_LABEL = b"r1cs-squaring"
+SQUARING_SEED = 2718
+SINGLE_VALUE = 1037578891  # the README's 32-bit range-proof secret
+SINGLE_SEED = 3141
 
+# (n, m) -> digest of the range proof on inputs(n, m)
 DIGESTS = {
     (8, 2): "1f97185de6591a8a35c03ecf79378ba753cdf8182fd8eea9094da55091d8ec2c",
+    (32, 1): "63ae4b6fa5a33b4506e3339292abe54e5e06827581101ef7ac0034393564db95",
+    (64, 1): "edbac59c36524a396bceae417e3556851a697f0a9b7ab7ebab618221c03bb60a",
+    (64, 2): "0fe30479ef28f770601c19d2735f80edf70f0119ae938c3dabad2377cab43922",
+    (64, 4): "645529fb5e08ce8336735ce39539495e06d4f08b127010ced6ecb2a63e905346",
+    (64, 8): "63c64981f3b363aea5e79db06ebd331e9a3b3d7887c93e1fd1aad0cf474c3353",
+    (64, 16): "ae41ade269e93b69f557f13381ececdc9882a1a2697d3030993b7f1f8e0b418a",
+    (64, 32): "716448e3387637b846204670325a23d675c5875e450e97ba606a04592de0ab89",
     (64, 64): "2f5823ea54cc5e9fb1e190f71d0b6c5cfde362ecbae7d94c1dcec34b7ebf1554",
 }
 
+# k -> digest of the k-shuffle proof on shuffle_inputs(k)
 SHUFFLE_DIGESTS = {
+    2: "31fa8cda39b0e22662f8c31988fd0689e95c0dfe3aa0f3452c5aa0ec5ae7184b",
+    4: "6d8ce128ae5396c9ed4d3207fba0635980afc8360ca46308a7c749de8f72366a",
+    8: "e1382b673117238e27ebb31468ebd671e323a124cd731c22304beb68d16339bd",
     16: "344e14748e5e33f48a3e520f89418346ee9199d7b01e59247405b40f7a35d2b8",
+    32: "672d09865a62114e23de2ccf3a1832e882c9930e3f868641bbdc7607c9b7f80c",
+    64: "876ad01999c28fcf4152deab8869134b15bb0258ea5beee11afa30cee35cb5f4",
+    128: "7306a7fbed68be60a42508b3277b77716a5885d058eece109e650a988e2725fe",
+    256: "a0e1cf6681794a5ba3ea30ed0f12832e69385f526ca2dd6aa54fa81cc737c670",
+    512: "48070fd8b1447da91d6a12dc2fd39c27a7db4038e64db903a6a1b5c79855ec8b",
     1024: "6d443a4bd8c3020258ed1ab0698a145ac0ef0579d84826929cfba3dbcf6b7d17",
+}
+
+# n -> digest of the squaring chain of n multipliers (squaring_chain on
+# squaring_value(), from squaring_transcript(n))
+SQUARING_DIGESTS = {
+    2: "7a8e625a56da83cb166816f71755d79c9f6fb3cce02dd655e6fb01d6f9cb157f",
+    4: "08abb86f47a78fcca4dc12cf44eb714deb2b5854255f72bf3c9674efec6e22c8",
+    8: "e259c0e788f55275ff531b328e8c9cd19678995280e27a8099ee15b7b393a3d4",
+    16: "3275b4cf80649aed206227d5caf2e313760a820bee5e332de2938773ac46f142",
+    32: "4ff1aaa796890cf6ea685d2ec84d5e3e2ce5ff7caa0cab131218de4c2482b85a",
+    64: "0ff0041f4d69f75eea5ae73d14ee98020fc82c8f2d8e6088a6eceeaade1e6989",
+    128: "f795ba68a0cd8b1cb0804f776518fdd7076b051797a12d7ae5687d7c599c52e7",
+    256: "7ca71b50ed15359bb936a5d75beee8313689b8bcb7f27e5be32a2d33b226a975",
+    512: "d392af5d51d02f5ef18efe7dbbd9754965baf8837b5cf0eb4f9e17e8d1c2fb85",
+    1024: "d65ab22a3c197950b0ca18ce4c47df500170023ebc3ce64df30cf8f0d05465b5",
+}
+
+# (n, m) -> gens_digest(G(n, m), H(n, m)) of BulletproofGens(n, m)
+GENS_DIGESTS = {
+    (2, 1): "83e2da26b84a201a69f6df6d0387604e9a6c60dbdb422fbfdd719f9deee5c09a",
+    (8, 1): "4036cf53f25be8c978e52e94ec04a170b772013ebfefa0728375d5632923f535",
+    (64, 1): "6df0f1c503c9d40ff68d4621c82e1b93b8b78d87339ad334d6b02c9286d356e1",
+    (64, 64): "2c63acb88bf1938d9a19aa4640fa7c02878afdf7b313079bde16b08fc429b152",
+    (256, 1): "cb06af3d9bd6df48f5eadcd9de8b467413c1a8bfa2441247ff39eca8ce911345",
+    (1024, 1): "6188136a0b39f4f62b10b6ab5931c18f4a0a4a7b5a86d6509aada2ee95a3291e",
+    (1 << 17, 1): "a23a294a6eb21450f819c29a3369f2edf2195ea3a98c5573c108d550092bb3d8",
 }
 
 
@@ -113,7 +192,10 @@ def det_stream():
 
 
 def inputs(n: int, m: int):
-    """``(values, blindings)`` for an ``(n, m)`` proof."""
+    """``(values, blindings)`` for an ``(n, m)`` proof: seeded, except for
+    ``(32, 1)``, config 1's :func:`single_inputs`."""
+    if (n, m) == (32, 1):
+        return single_inputs()
     rng = random.Random(909)
     values = [rng.randrange(1 << n) for _ in range(m)]
     blindings = [Scalar(rng.getrandbits(251)) for _ in range(m)]
@@ -257,3 +339,44 @@ def ipp_device_inputs(n: int, device) -> dict:
 
 def ipp_digest(proof, transcript_state: bytes) -> str:
     return hashlib.sha256(proof.to_bytes() + transcript_state).hexdigest()
+
+
+def single_inputs():
+    """``(values, blindings)`` of the 32-bit single range proof:
+    :data:`SINGLE_VALUE` and a blinding drawn from :data:`SINGLE_SEED`."""
+    return [SINGLE_VALUE], [Scalar(random.Random(SINGLE_SEED).getrandbits(251))]
+
+
+def squaring_value() -> int:
+    """The public value the squaring chain starts from."""
+    return random.Random(SQUARING_SEED).getrandbits(251)
+
+
+def squaring_chain(cs, n_constraints: int, value) -> None:
+    """The R1CS benchmark circuit: ``value`` committed as a public input,
+    then squared ``n_constraints`` times, each square one multiplier.
+    ``cs`` is a prover or verifier of either package, ``value`` a
+    ``Scalar`` of its package."""
+    var = cs.commit_public(value)
+    for _ in range(n_constraints):
+        _, _, var = cs.multiply(var.to_lc(), var.to_lc())
+
+
+def squaring_transcript(n: int, transcript_cls=None):
+    """The transcript a squaring-chain proof of ``n`` multipliers starts
+    from (prover and verifier); ``transcript_cls``: the package's
+    ``HashChainTranscript``, by default the port's."""
+    if transcript_cls is None:
+        from .transcript import HashChainTranscript as transcript_cls
+    t = transcript_cls(SQUARING_LABEL)
+    t.append_u64(b"n", n)
+    return t
+
+
+def gens_digest(G, H) -> str:
+    """sha256 of the affine ``x || y`` (32 bytes each, big-endian) of every
+    point of G, then of H: one generator set's fingerprint."""
+    h = hashlib.sha256()
+    for p in list(G) + list(H):
+        h.update(p.x.to_bytes(32, "big") + p.y.to_bytes(32, "big"))
+    return h.hexdigest()
