@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py    # from the repository root, on a machine with one card
     python3 chip_smoke.py --ab DIR    # also A/B against the one-block point_reduce, csrc in DIR
+    python3 chip_smoke.py --seed N    # the transcript check's states and bytes from N (default 13)
 
 Phases, one JSON object per line on standard output:
 
 1. ``env``: torch and CUDA versions, the ``nvcc`` path, the card.
-2. ``build``: all fifteen CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
+2. ``build``: all sixteen CUDA kernels built from ``mpc_bulletproof_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with each library's ptxas report.
    ``clock``: the SM clock ``nvidia-smi`` reports while the full xor chain
    (``probe_xor_chain``) runs, which every per-pipe bound below uses.
@@ -63,19 +64,29 @@ Phases, one JSON object per line on standard output:
    in turns (wide, narrow, narrow, wide); ``mod_pow_ab``: the inverse by
    the ladder and by the GCD at each inverse path shape, held to the
    plain version and timed in turns.
-4. ``gens``: the generator chains.  ``keccak_chain`` (a thread a chain)
+4. ``gens``: the generator chains.  ``keccak_chain`` (a warp a chain)
    and ``keccak256_32`` against their plain versions byte for byte at
    ``KECCAK_CHAIN_CHECKS`` and ``KECCAK_HASH_N`` messages, and the wide
    set-up's walk (2 chains of ``GENS_WIDE`` steps) with its last 256 steps
    held to the plain walk; their kernel lines (the chain's bound the
    larger of its issue time and its dependency bound: ``KECCAK_F_DEPTH``
-   dependent instructions a step at ``DEP_LATENCY_CYCLES``).  Then
+   dependent instructions a step at ``DEP_LATENCY_CYCLES``; ``design``:
+   the warp design's own floors, ``KECCAK_WARP_DEPTH`` and
+   ``KECCAK_WARP_NEEDS``, and the shuffle latency the time implies).  Then
    ``BulletproofGens(size, 1)`` for ``GENS_SIZES`` (benches/generators.rs),
    ``GENS_WIDE`` (a k = 2^16 shuffle's capacity) and ``GENS_AGGREGATED``,
    each against ``pinned.GENS_DIGESTS`` from its host lists and from its
    device tensors, its seconds split into walk, keccak, reduction,
    fixed-base products, affine conversion and host lists; the launches of
    the wide set-up and a profile of it (counts must match).
+   ``transcript``: ``keccak_transcript`` (a warp runs a sequence of
+   transcript blocks, then optionally keccak256 of the final state)
+   against its plain version byte for byte: runs of 1, 2, 3 and 64
+   absorbs, with and without the closing challenge, total lengths 32 to
+   135 (``TRANSCRIPT_LENGTHS``), states and bytes from ``--seed``;
+   ``transcript_t.absorb_many`` against the same run on the CPU and its
+   refusal of 136 bytes; device ms at an IPP round's run and at the range
+   prover's V run, with the bound and the design's floors.
 5. ``main_path``: ``RangeProof.prove_multiple`` at (n, m) = (64, 64) on the
    pinned inputs; the digest of proof, commitments and transcript must equal
    the JAX package's (``mpc_bulletproof_tpu_torch/pinned.py``).  Launch
@@ -84,7 +95,9 @@ Phases, one JSON object per line on standard output:
    (torch.profiler), each port kernel's sum (``port_kernels``), the sums
    by CUDA source beside the launch counters of the same proof
    (``by_source``, ``counts_match``), all device launches and the
-   device's idle share.
+   device's idle share; its device launches must be at least
+   ``PROVE_LAUNCH_DROP`` under ``PARENT_PROFILES``' (the transcript left
+   plain torch).
 6. ``verify``: ``verify_multiple`` of that proof; two tampered copies (t_x + 1,
    L_1 swapped with R_1) must raise ``VerificationError``; ``verify_batch``
    of it and a second proof must pass.  Launch counts around one
@@ -214,6 +227,9 @@ Phases, one JSON object per line on standard output:
    ``r1cs_sweep`` each sweep whole; for the
    scans and Horner also their ptxas registers and spills, launch
    configurations and resident warps a scheduler), the card's
+   ``profiles`` line (each profiled run's device launches and idle share
+   beside ``PARENT_PROFILES``, the figures PERF.md §5 records for the tree
+   before the transcript kernel), the card's
    ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
    {...}}``.
 
@@ -256,8 +272,17 @@ WARM_R1CS = 3
 # BulletproofGens(size, 1) for the reference's sizes (benches/generators.rs),
 # at GENS_WIDE (the capacity of a k = 2^16 shuffle) and at (64, 64), each
 # against pinned.GENS_DIGESTS
-KECCAK_CHAIN_CHECKS = ((2, 0, 256), (128, 64, 64))
+KECCAK_CHAIN_CHECKS = ((2, 0, 256), (128, 64, 64), (33, 3, 1))
 KECCAK_HASH_N = 1 << 18
+# The transcript kernel held to its plain version: runs of 1, 2, 3 and 64
+# absorbs, with and without the closing challenge, the total length of
+# each absorb (state, label, message) cycling through TRANSCRIPT_LENGTHS
+# (a run of one absorb takes each length in turn); states and bytes from
+# --seed.  Timed at the IPP round's run (2 absorbs of 128 bytes and u) and
+# at the range prover's V run (64 absorbs of 128 bytes).
+TRANSCRIPT_LENGTHS = (32, 33, 64, 72, 96, 128, 134, 135)
+TRANSCRIPT_RUNS = (1, 2, 3, 64)
+TRANSCRIPT_TIMED = {"ipp_round": (2, True), "v_run": (64, False)}
 GENS_SIZES = (2, 8, 64, 256, 1024)
 GENS_WIDE = 1 << 17
 GENS_AGGREGATED = (64, 64)
@@ -365,14 +390,30 @@ def gcd_needs(fr: bool) -> dict:
     return needs((17 * 31, GCD_STEP_NEEDS), (17, {"alu": 40}), (34, _LIN_COMB), (34, mont))
 
 
-# One keccak-f[1600] in 32-bit instructions (csrc/keccak.cu: the 64-bit
-# lanes as halves), a round: the columns' parities 20 LOP3, their rotations
-# by one 10 SHF, theta 50 LOP3, rho 48 SHF (24 lanes rotated, none by 0 or
-# 32), chi 50 LOP3, iota 2 LOP3; all on the ALU.  Its dependent depth, a
+# What one keccak-f[1600] needs, in 32-bit instructions (the 64-bit lanes
+# as halves, as csrc/keccak.cu's thread design keccak_f issues them), a
+# round: the columns' parities 20 LOP3, their rotations by one 10 SHF,
+# theta 50 LOP3, rho 48 SHF (24 lanes rotated, none by 0 or 32), chi 50
+# LOP3, iota 2 LOP3; all on the ALU.  Its dependent depth, a
 # round: two LOP3 levels for a parity, one SHF, one LOP3, one SHF, one LOP3
 # (iota folds into the next parity): 6, 144 a permutation.
 KECCAK_F_NEEDS = {"alu": 24 * (20 + 10 + 50 + 48 + 50 + 2)}
 KECCAK_F_DEPTH = 24 * 6
+# The warp design that keccak_chain and keccak_transcript run
+# (csrc/keccak.cu keccak_f_warp: thread t < 25 holds word t).  A thread, a
+# round: 18 SHFL (4 column words, C[x - 1] and C[x + 1], 3 rotated words
+# for pi and chi, each two 32-bit halves) and 18 ALU (the parity with the
+# folded iota 6 LOP3, the rotation by one 2 SHF, word 0's iota 2 LOP3,
+# theta 2 LOP3, rho's select 2 SEL and shift 2 SHF, chi 2 LOP3), issued by
+# all 32 lanes of the warp.  Its dependent path a round: 3 shuffles and 7
+# ALU instructions (two parity levels, the rotation by one, theta, the
+# select, rho, chi), and word 0's last iota.  That is the design's own
+# floor; the bound stays the function's (KECCAK_F_NEEDS, KECCAK_F_DEPTH).
+# Shuffle latency is not published; the design floor counts a shuffle at
+# DEP_LATENCY_CYCLES (no instruction is faster), and each row reports the
+# shuffle latency its measured time implies.
+KECCAK_WARP_NEEDS = {"alu": 32 * 24 * 18, "shfl": 32 * 24 * 18}
+KECCAK_WARP_DEPTH = {"shfl": 24 * 3, "alu": 24 * 7 + 1}
 
 # The probes' dependency bound: dependent instructions a chain step puts on
 # one lane's path through the accumulator (loop control and operands that
@@ -407,7 +448,7 @@ PROBE_DEP_STEPS = {
 # that pipe's lanes a clock an SM (CUDA C++ Programming Guide, "Throughput
 # of Native Arithmetic Instructions", compute capability 9.0: 128 FP32
 # add/mul/FMA, 64 of each 32-bit integer add, multiply(-add), shift,
-# compare or bitwise op, 16 conversions), and all of them over the 128
+# compare or bitwise op, 16 conversions, 32 warp shuffles), and all of them over the 128
 # lanes a clock an SM dispatches (4 schedulers of one warp instruction a
 # clock), at the clock under load.  The bound is the largest of these
 # times.  Loop control, and whatever the compiler adds to a step or puts
@@ -422,7 +463,7 @@ PROBE_DEP_STEPS = {
 # issues 5 VIADDs each 4 steps, runs at 97% of them on the FMA pipe and
 # faster than they would take on the ALU; i32_to_f32 runs faster than
 # its I2FP and F2I would take on the conversion pipe.
-PIPE_RATE = {"fp32": 128, "alu": 64, "imad": 64, "conv": 16}
+PIPE_RATE = {"fp32": 128, "alu": 64, "imad": 64, "conv": 16, "shfl": 32}
 INT_RATE = 128
 DISPATCH_RATE = 128
 PROBE_NEEDS = {  # probe -> op -> instructions a lane-step per pipe
@@ -460,6 +501,7 @@ SASS_PIPE = {
     **dict.fromkeys(("IMAD", "VIADD"), "imad"),
     **dict.fromkeys(("I2F", "F2I", "FRND", "F2F", "F2IP"), "conv"),
     **dict.fromkeys(("BRA", "BRX", "JMP"), "branch"),
+    "SHFL": "shfl",
 }
 # each probe's kernel function in csrc/probes.cu, and the lane-steps one
 # iteration of its main loop runs: CHAIN_STEPS steps of one lane, 4 steps
@@ -573,36 +615,58 @@ REPLACES = {
     # GeneratorsChain walks with, and hash_to_scalar's second keccak
     "keccak_chain": "mpc_bulletproof_tpu/generators.py:75 (no Pallas site: native keccak256)",
     "keccak256_32": "mpc_bulletproof_tpu/transcript.py:40 (no Pallas site: native keccak256)",
+    # no Pallas site: the JAX package's on-device transcript hash is jnp,
+    # compiled by XLA into its fused prover
+    "keccak_transcript": "mpc_bulletproof_tpu/ops/keccak_jax.py:111 (no Pallas site: keccak256_device, jnp)",
 }
 # The entries of csrc/vec2.cu: the elementwise ops and the share plane's expressions.
 VEC2_FAMILY = ("vec2", "beaver_diff", "beaver_combine", "poly3_eval")
-# The kernels each path must launch (vec2: the IPP rounds' scalar products).
+# The kernels each path must launch (vec2: the IPP rounds' scalar products;
+# keccak_transcript: every absorb and challenge of ops/transcript_t.py, which
+# the fused range prover and the fused IPP rounds run).
 PATH_KERNELS = {
     "prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
-              "mod_pow_static", "vec2"},
+              "mod_pow_static", "vec2", "keccak_transcript"},
     "verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
     "msm": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
     "r1cs_prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
-                   "mod_pow_static", "vec2"},
+                   "mod_pow_static", "vec2", "keccak_transcript"},
     "r1cs_verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
     "mpc": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2",
             "beaver_diff", "beaver_combine", "poly3_eval"},
     "pd": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "mod_pow_static",
-           "vec2"},
+           "vec2", "keccak_transcript"},
     "ipp": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "mod_pow_static",
-            "vec2"},
+            "vec2", "keccak_transcript"},
     "tcp": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2",
             "beaver_diff", "beaver_combine", "poly3_eval"},
     "probes": {"probe_chain", "probe_xor_chain", "probe_accum"},
     "gens": {"keccak_chain", "keccak256_32", "point_reduce", "mod_pow_static"},
     "rp_sweep": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
-                 "mod_pow_static", "vec2"},
+                 "mod_pow_static", "vec2", "keccak_transcript"},
     "r1cs_sweep": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
-                   "mod_pow_static", "vec2"},
+                   "mod_pow_static", "vec2", "keccak_transcript"},
 }
 
 
 STARTED = time.monotonic()
+SEED = 13  # set by main from --seed: the transcript check's states and bytes
+# Each profile line's launches and idle share, by what it profiled (the
+# first of each), for the closing ``profiles`` line; beside them the figures
+# PERF.md §5 records for the tree before the transcript kernel (None where
+# it records none; NVIDIA H100 80GB HBM3, 700 W).  The prove's launches
+# must fall by PROVE_LAUNCH_DROP at least: the transcript's ~600 launches a
+# hash left plain torch.
+PROFILES: dict = {}
+PARENT_PROFILES = {
+    "prove": {"device_launches": 124116, "device_idle_share": 0.917},
+    "party_dealer": {"device_launches": None, "device_idle_share": 0.916},
+    "msm": {"device_launches": None, "device_idle_share": 0.037},
+    "r1cs_prove": {"device_launches": None, "device_idle_share": 0.967},
+    "mpc": {"device_launches": None, "device_idle_share": 0.987},
+    "gens": {"device_launches": None, "device_idle_share": 0.61},
+}
+PROVE_LAUNCH_DROP = 70000
 
 
 def emit(obj) -> None:
@@ -1863,16 +1927,39 @@ def r1cs_phase(gpu: str, dev, k: int = SHUFFLE_K) -> dict:
     return res
 
 
-def keccak_chain_bound(chains: int, skip: int, count: int) -> dict:
-    """The chain walk's bound: its bytes and ALU instructions, and the
-    dependency bound, (skip + count) permutations of ``KECCAK_F_DEPTH``
-    dependent instructions each at ``DEP_LATENCY_CYCLES``; the largest."""
-    steps = skip + count
-    bnd = bound(32 * chains * (1 + count), needs((chains * steps, KECCAK_F_NEEDS)))
-    dep_ms = steps * KECCAK_F_DEPTH * DEP_LATENCY_CYCLES / (SM_CLOCK_MHZ * 1e3)
+def keccak_walk_bound(perms: int, parallel: int, bytes_moved: float) -> dict:
+    """The bound of ``parallel`` keccak chains of ``perms`` permutations
+    each, moving ``bytes_moved`` bytes: the largest of the byte time, the
+    per-pipe issue time of the function (``KECCAK_F_NEEDS`` a permutation)
+    and its dependency bound (``KECCAK_F_DEPTH`` dependent instructions a
+    permutation at ``DEP_LATENCY_CYCLES``)."""
+    bnd = bound(bytes_moved, needs((parallel * perms, KECCAK_F_NEEDS)))
+    dep_ms = perms * KECCAK_F_DEPTH * DEP_LATENCY_CYCLES / (SM_CLOCK_MHZ * 1e3)
+    kind = "dependency" if dep_ms >= bnd["bound_ms"] else "issue"
     if dep_ms > bnd["bound_ms"]:
         bnd.update(bound_ms=dep_ms, bound_by="operations")
-    return {**bnd, "dependency_bound_ms": dep_ms, "bound_kind": "dependency" if dep_ms >= bnd["bound_ms"] else "issue"}
+    return {**bnd, "dependency_bound_ms": dep_ms, "bound_kind": kind}
+
+
+def keccak_warp_design(perms: int, dev_ms: float | None) -> dict:
+    """The warp design's own floors for a chain of ``perms`` permutations
+    (never the bound): its dependent path (``KECCAK_WARP_DEPTH``, a shuffle
+    counted at ``DEP_LATENCY_CYCLES``), one warp's issue at one instruction
+    a clock (``KECCAK_WARP_NEEDS`` over 32 lanes), and the shuffle latency
+    in cycles that ``dev_ms`` implies if the path were all that ran."""
+    per_clock = SM_CLOCK_MHZ * 1e3  # cycles a ms
+    depth = sum(KECCAK_WARP_DEPTH.values())
+    warp_instr = sum(KECCAK_WARP_NEEDS.values()) / 32
+    out = {"depth_a_permutation": KECCAK_WARP_DEPTH, "instructions_a_permutation": KECCAK_WARP_NEEDS,
+           "dependency_floor_ms": perms * depth * DEP_LATENCY_CYCLES / per_clock,
+           "warp_issue_floor_ms": perms * warp_instr / per_clock}
+    if dev_ms:
+        cycles = dev_ms * per_clock / perms
+        out["cycles_a_permutation"] = cycles
+        out["implied_shfl_cycles"] = ((cycles - KECCAK_WARP_DEPTH["alu"] * DEP_LATENCY_CYCLES)
+                                      / KECCAK_WARP_DEPTH["shfl"])
+        out["dependency_floor_share"] = out["dependency_floor_ms"] / dev_ms
+    return out
 
 
 def gens_split(make) -> tuple:
@@ -1967,7 +2054,7 @@ def gens_phase(gpu: str, dev) -> dict:
     checks.append({"chains": 2, "skip": 0, "count": GENS_WIDE, "held": f"the last {tail} steps",
                    "equal": bool(torch.equal(got[:, -tail:], want)), "max_abs_err": err(got[:, -tail:], want)})
     chain_dev = device_ms(walk, 2)
-    chain_bnd = keccak_chain_bound(2, 0, GENS_WIDE)
+    chain_bnd = keccak_walk_bound(GENS_WIDE, 2, 32 * 2 * (1 + GENS_WIDE))
     chain_row = {"phase": "kernel", "name": "keccak_chain", "path": "gens",
                  "shape": {"chains": 2, "skip": 0, "count": GENS_WIDE}, "tolerance": 0,
                  "equal": all(c["equal"] for c in checks), "max_abs_err": max(c["max_abs_err"] for c in checks),
@@ -1976,6 +2063,7 @@ def gens_phase(gpu: str, dev) -> dict:
                  "gpu": gpu}
     chain_row["bound_share"] = share(chain_row["bound_ms"], chain_dev)
     chain_row["serial"] = serial_depth("keccak_f", GENS_WIDE, chain_dev)
+    chain_row["design"] = keccak_warp_design(GENS_WIDE, chain_dev)
     emit(chain_row)
     del got, want
 
@@ -2025,6 +2113,90 @@ def gens_phase(gpu: str, dev) -> dict:
         raise RuntimeError(f"gens: the profile's counts differ from the launch counters: {prof['by_source']}")
     res.update(checks={"keccak_chain": chain_row, "keccak256_32": hash_row}, gens=made)
     return res
+
+
+def transcript_blocks(gen, dev, lengths) -> "torch.Tensor":
+    """One padded ``(136,)`` int64 block per total length in ``lengths``:
+    random bytes below it (bytes 0-31 too, which the kernel must not read),
+    0x01 at it, zeros above, and 0x80 or'ed into byte 135 (0x81 at 135)."""
+    import torch
+
+    rows = torch.randint(0, 256, (len(lengths), 136), generator=gen, device=dev, dtype=torch.int64)
+    col = torch.arange(136, device=dev)
+    total = torch.as_tensor(list(lengths), device=dev)[:, None]
+    rows = torch.where(col < total, rows, 0) | torch.where(col == total, 0x01, 0)
+    rows[:, 135] |= 0x80
+    return rows
+
+
+def transcript_phase(gpu: str, dev) -> dict:
+    """``keccak_transcript`` on the card against its plain version byte for
+    byte: runs of ``TRANSCRIPT_RUNS`` absorbs, with and without the closing
+    challenge, at every total length of ``TRANSCRIPT_LENGTHS`` (135
+    included), states and bytes from ``--seed``; then
+    ``transcript_t.absorb_many`` (template, message scatter, launch) at an
+    IPP round's shape against the same run on the CPU, challenge scalar
+    included, and its refusal above 135 bytes.  Timed at
+    ``TRANSCRIPT_TIMED``: device ms, the plain version's ms, the bound
+    (bytes, the function's issue and dependency) and the warp design's
+    floors.  Returns ``{"keccak_transcript": row}``."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.ops import keccak_t, kernels
+    from mpc_bulletproof_tpu_torch.ops import transcript_t as tj
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state32 = lambda: torch.randint(0, 256, (32,), generator=gen, device=dev, dtype=torch.int64)
+    cases, worst = [], 0.0
+    for j in TRANSCRIPT_RUNS:
+        runs = ([[n] for n in TRANSCRIPT_LENGTHS] if j == 1 else
+                [[TRANSCRIPT_LENGTHS[i % len(TRANSCRIPT_LENGTHS)] for i in range(j)]])
+        for lengths in runs:
+            for high in (False, True):
+                st, blocks = state32(), transcript_blocks(gen, dev, lengths)
+                got = kernels.keccak_transcript(st, blocks, high)
+                want = keccak_t.keccak_transcript_plain(st, blocks, high)
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                cases.append({"absorbs": j, "lengths": lengths if j < 64 else "cycled", "challenge": high,
+                              "equal": bool(torch.equal(got, want)), "max_abs_err": err})
+    # the transcript's own entry: template, scatter and launch, against the CPU
+    st, enc = state32(), torch.randint(0, 256, (64, 2), generator=gen, device=dev, dtype=torch.int64)
+    s_card, u_card = tj.absorb_many(st, [b"L", b"R"], enc, b"u")
+    s_cpu, u_cpu = tj.absorb_many(st.cpu(), [b"L", b"R"], enc.cpu(), b"u")
+    api = {"equal": bool(torch.equal(s_card.cpu(), s_cpu) and torch.equal(u_card.cpu(), u_cpu))}
+    try:
+        tj.absorb_many(st, [b"x"], enc.new_zeros((72, 1)))     # 32 + 32 + 72 = 136 bytes
+        api["refuses_136"] = False
+    except ValueError:
+        api["refuses_136"] = True
+
+    timed = {}
+    for what, (j, high) in TRANSCRIPT_TIMED.items():
+        st, blocks = state32(), transcript_blocks(gen, dev, [128] * j)
+        run = lambda: kernels.keccak_transcript(st, blocks, high)
+        _, plain_ms = timed_ms(lambda: keccak_t.keccak_transcript_plain(st, blocks, high))
+        dev_ms = device_ms(run, 20)
+        perms = j + int(high)
+        bnd = keccak_walk_bound(perms, 1, 8 * (32 + 136 * j + (64 if high else 32)))
+        timed[what] = {"absorbs": j, "challenge": high, "kernel_ms": cuda_ms(run, 20), "device_ms": dev_ms,
+                       "plain_ms": plain_ms, **bnd, "bound_share": share(bnd["bound_ms"], dev_ms),
+                       "serial": serial_depth("keccak_f", perms, dev_ms),
+                       "design": keccak_warp_design(perms, dev_ms)}
+    main = timed["ipp_round"]
+    row = {"phase": "kernel", "name": "keccak_transcript", "path": "ipp", "shape": {"absorbs": 2, "challenge": True},
+           "tolerance": 0, "equal": all(c["equal"] for c in cases) and api["equal"] and api["refuses_136"],
+           "max_abs_err": worst, "checks": {"cases": cases, "absorb_many": api}, "seed": SEED,
+           **{k: main[k] for k in ("kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "pipe",
+                                   "pipe_bound_ms", "bytes_bound_ms", "dependency_bound_ms", "bound_kind",
+                                   "bound_share", "serial", "design")},
+           "at_paths": timed, "gpu": gpu}
+    emit(row)
+    if not row["equal"]:
+        bad = [c for c in cases if not c["equal"]]
+        raise RuntimeError(f"keccak_transcript disagrees with its plain version: {bad[:4]} {api}")
+    return {"keccak_transcript": row}
 
 
 def rp_sweep_phase(gpu: str, dev, mp: dict) -> dict:
@@ -3160,13 +3332,27 @@ def profile_run(fn, warm_us: float, gpu: str, what: str, extra: dict | None = No
             by_source[source_of[fname]]["device_us"] += us
             by_source[source_of[fname]]["recorded"] += n
     by_source = {k: v for k, v in by_source.items() if v["recorded"] or v["counted"]}
-    return {"phase": "profile", "of": what, "wall_us": wall_us, "device_busy_us": busy_us if rows else None,
-            "device_idle_share": (1 - busy_us / wall_us) if rows else None,
-            "device_idle_share_unprofiled": (1 - busy_us / warm_us) if rows else None,
-            "device_launches": sum(r[2] for r in rows) if rows else None,
-            "top": [{"name": k[:80], "device_us": us, "count": n} for us, k, n in rows[:25]],
-            "port_kernels": port, "by_source": by_source,
-            "counts_match": all(v["recorded"] == v["counted"] for v in by_source.values()), "gpu": gpu}
+    res = {"phase": "profile", "of": what, "wall_us": wall_us, "device_busy_us": busy_us if rows else None,
+           "device_idle_share": (1 - busy_us / wall_us) if rows else None,
+           "device_idle_share_unprofiled": (1 - busy_us / warm_us) if rows else None,
+           "device_launches": sum(r[2] for r in rows) if rows else None,
+           "top": [{"name": k[:80], "device_us": us, "count": n} for us, k, n in rows[:25]],
+           "port_kernels": port, "by_source": by_source,
+           "counts_match": all(v["recorded"] == v["counted"] for v in by_source.values()), "gpu": gpu}
+    PROFILES.setdefault(what, {k: res[k] for k in ("device_launches", "device_idle_share",
+                                                   "device_idle_share_unprofiled", "device_busy_us",
+                                                   "wall_us", "counts_match")})
+    return res
+
+
+def prove_launch_drop() -> int:
+    """How many fewer device launches the (64, 64) prove's profile counted
+    than :data:`PARENT_PROFILES`; raises if under :data:`PROVE_LAUNCH_DROP`."""
+    prove = PROFILES["prove"]["device_launches"]
+    drop = PARENT_PROFILES["prove"]["device_launches"] - (prove or 0)
+    if prove is None or drop < PROVE_LAUNCH_DROP:
+        raise RuntimeError(f"prove: {prove} device launches, {drop} fewer than before, under {PROVE_LAUNCH_DROP}")
+    return drop
 
 
 def device_rows(prof) -> list:
@@ -3345,15 +3531,19 @@ def kernel_summary(checks: dict, paths: dict, ptxas: dict) -> list:
 
 
 def main() -> int:
+    global SEED, SM_CLOCK_MHZ
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="seed of the transcript check's states and bytes (default %(default)s)")
     ap.add_argument("--ab", metavar="DIR",
                     help="also time the one-block point_reduce, built from the csrc directory DIR, against this "
                          "tree's, alone and on its route in one prove and one r1cs_prove proof (the ab lines)")
     args = ap.parse_args()
+    SEED = args.seed
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3374,13 +3564,14 @@ def main() -> int:
     entries = {name: ptxas_entries(log) for name, (_, log) in report.items()}
 
     dev = torch.device("cuda")
-    global SM_CLOCK_MHZ
     SM_CLOCK_MHZ = measure_clock(dev)
     emit({"phase": "clock", "sm_clock_mhz_under_load": SM_CLOCK_MHZ, "gpu": gpu})
     checks = check_kernels(gpu, dev)
     gn = gens_phase(gpu, dev)
     checks.update(gn["checks"])
+    checks.update(transcript_phase(gpu, dev))
     mp = main_path(gpu, dev)
+    prove_launch_drop()
     vf = verify_phase(gpu, dev, mp)
     rs = rp_sweep_phase(gpu, dev, mp)
     pd = party_dealer_phase(gpu, dev, mp)
@@ -3401,6 +3592,8 @@ def main() -> int:
              "rp_sweep": rs["launches"], "r1cs_sweep": r1s["launches"]}
     summary = kernel_summary(checks, paths, entries)
     emit({"kernels": summary})
+    emit({"phase": "profiles", "this": PROFILES, "parent": PARENT_PROFILES,
+          "prove_launch_drop": prove_launch_drop(), "gpu": gpu})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

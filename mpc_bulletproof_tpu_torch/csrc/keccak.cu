@@ -1,38 +1,62 @@
-// Keccak-256 (pre-NIST padding 0x01 .. 0x80) for the generator chains.
+// Keccak-256 (pre-NIST padding 0x01 .. 0x80): the generator chains and the
+// Fiat-Shamir transcript.
 //
-// Replaces no Pallas kernel: the JAX package walks its generator chains
+// Replaces no Pallas kernel.  The JAX package walks its generator chains
 // with its native engine (mpc_bulletproof_tpu/ops/keccak.py keccak256 ->
 // utils/native.py keccak256, called by generators.py GeneratorsChain), a
-// C++ hash on the host.  This is the card's counterpart for the chains:
+// C++ hash on the host, and hashes its on-device transcript with jnp
+// (ops/keccak_jax.py keccak256_device), which XLA compiles into the fused
+// prover's one program.  These are the card's counterparts:
 //
 //   state_0 = keccak256(pad_label("GeneratorsChain" || label))   (host, once)
 //   state_{i+1} = keccak256(state_i)
 //   generator_i = hash_to_scalar(state_{i+1}) B,
 //   hash_to_scalar(s) = LE(s || keccak256(s)) mod r
 //
-// Two entry points:
-// - bp_keccak_chain: one thread a chain.  Each thread walks `skip` steps
-//   without writing, then `count` steps, writing each state.  A chain is
-//   serial by definition, so its time is a latency chain: (skip + count)
-//   times the dependent depth of one keccak-f, 6 32-bit instructions a round
-//   (two LOP3 levels for a column's parity, one SHF for its rotation, one
-//   LOP3 for theta, one SHF for rho, one LOP3 for chi; iota folds into the
-//   next parity), 144 a permutation.  One thread issues all ~4,300 32-bit
-//   instructions of a permutation itself, so it sits well above that bound;
-//   the chains of a launch share a warp (they run in lock step, one chain or
-//   32 cost the same).  A warp a chain (lanes as state words, theta by
-//   __shfl) is the redesign that would spread the issue.
+//   absorb:    state' = keccak256(state || pad_label(label) || msg)
+//   challenge: state' = keccak256(state || pad_label(label)), and beside it
+//              high = keccak256(state') for hash_to_scalar
+//
+// Both chains are serial by definition: each permutation waits for the one
+// before, so their time is a latency chain.  Three entry points:
+// - bp_keccak_chain: a warp a chain (several chains a block).  Each warp
+//   walks `skip` steps without writing, then `count` steps, writing each
+//   state.
+// - bp_keccak_transcript: one warp runs a sequence of transcript blocks
+//   (each absorb, and a challenge's label, is one 136-byte block whose
+//   first 32 bytes are the running state), then optionally keccak256 of
+//   the final state.  The caller builds the blocks (label, message and
+//   padding) on the card; nothing comes back to the host.
 // - bp_keccak256_32: one thread a 32-byte message, all in parallel: the
 //   second keccak of hash_to_scalar over every walked state.  Bound by the
 //   ALU pipe: ~2,930 LOP3 and ~1,390 SHF a permutation (32-bit halves of
 //   the 64-bit lanes), against 64 bytes of traffic.
 //
-// The state is 25 64-bit lanes (index x + 5 y) in registers, the 24 rounds
-// unrolled with compile-time rotations, so every rotation is a pair of
-// funnel shifts.  A 32-byte message is one block: lanes 0-3 the message,
-// lane 4 the padding byte 0x01, lane 16 the final 0x80.  Bytes are read and
-// written as little-endian 64-bit words (the wrapper checks 8-byte
-// alignment).
+// The warp design (keccak_f_warp).  Thread t < 25 of a warp holds state
+// word t = x + 5 y; threads 25-31 run along on copies and are never read.
+// A round: the four other words of column x by four shuffles, the parity
+// C[x] by an xor tree; C[x - 1] and C[x + 1] by two shuffles from the
+// neighbours in the row, theta as one xor with rot(C[x + 1], 1); rho as a
+// pair of funnel shifts by the thread's own amount mod 32, the halves
+// swapped first (one select each) where it is 32 or more; pi and chi
+// together by three shuffles of the rotated words (B[t] and the next two
+// words of its row, each from its pi source); iota is folded into the next
+// round's parity (column 0 adds the constant, word 0 takes it while the
+// shuffles fly).  The dependent path of a round is 3 shuffles and 7 ALU
+// instructions (2 for the parity, the rotation by one, theta, the select,
+// rho's shift, chi), against 6 ALU instructions for the thread design;
+// each thread issues ~42 instructions a round (18 of them SHFL halves)
+// where the thread design issued ~180 alone.  A 64-bit shuffle is two
+// 32-bit ones.
+//
+// The thread design (keccak_f) keeps the state's 25 64-bit lanes (index
+// x + 5 y) in registers, the 24 rounds unrolled with compile-time
+// rotations, so every rotation is a pair of funnel shifts.  A 32-byte
+// message is one block: lanes 0-3 the message, lane 4 the padding byte
+// 0x01, lane 16 the final 0x80.  Chain bytes are read and written as
+// little-endian 64-bit words (the wrapper checks 8-byte alignment);
+// transcript bytes are int64 values in [0, 256), one a byte, as the
+// tensor transcript keeps them.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -114,19 +138,137 @@ __device__ __forceinline__ void keccak256_32(u64 m[4]) {
   for (int i = 0; i < 4; ++i) m[i] = a[i];
 }
 
+// ---- the warp design --------------------------------------------------------
+
+static const unsigned FULL_MASK = 0xffffffffu;
+
+// rho amount and pi source of each word (index x + 5 y)
+__constant__ unsigned char KECCAK_ROT[25] = {0,  1,  62, 28, 27, 36, 44, 6,  55, 20, 3,  10, 43,
+                                             25, 39, 41, 45, 15, 21, 8,  18, 2,  61, 56, 14};
+__constant__ unsigned char KECCAK_PI_SRC[25] = {0, 6,  12, 18, 24, 3, 9,  10, 16, 22, 1, 7, 13,
+                                                19, 20, 4, 5,  11, 17, 23, 2, 8, 14, 15, 21};
+
+// A thread's shuffle sources and masks, fixed for the whole walk.
+struct WarpLane {
+  int mate0, mate1, mate2, mate3;  // the other four words of column x
+  int cm, cp;                      // the words of columns x - 1 and x + 1 in row y
+  int pi0, pi1, pi2;               // pi sources of B[t] and the next two words of row y
+  unsigned rot;                    // rho amount mod 32
+  bool swap;                       // rho amount >= 32: swap the halves first
+  u64 col0, self0;                 // all ones in column 0 / in word 0, else 0
+};
+
+__device__ __forceinline__ WarpLane warp_lane(int t) {
+  const int w = t < 25 ? t : t - 25;  // threads 25-31 shadow words 0-6
+  const int x = w % 5, y = w / 5;
+  WarpLane l;
+  l.mate0 = x + 5 * ((y + 1) % 5);
+  l.mate1 = x + 5 * ((y + 2) % 5);
+  l.mate2 = x + 5 * ((y + 3) % 5);
+  l.mate3 = x + 5 * ((y + 4) % 5);
+  l.cm = (x + 4) % 5 + 5 * y;
+  l.cp = (x + 1) % 5 + 5 * y;
+  l.pi0 = KECCAK_PI_SRC[w];
+  l.pi1 = KECCAK_PI_SRC[(x + 1) % 5 + 5 * y];
+  l.pi2 = KECCAK_PI_SRC[(x + 2) % 5 + 5 * y];
+  l.rot = KECCAK_ROT[w] & 31u;
+  l.swap = KECCAK_ROT[w] >= 32;
+  l.col0 = x == 0 ? ~0ull : 0ull;
+  l.self0 = t == 0 ? ~0ull : 0ull;
+  return l;
+}
+
+// rotl(v, r) for the thread's own r: the halves swapped where r >= 32, then
+// a funnel shift each by r mod 32
+__device__ __forceinline__ u64 rho_lane(u64 v, const WarpLane &l) {
+  const unsigned lo = (unsigned)v, hi = (unsigned)(v >> 32);
+  const unsigned p = l.swap ? hi : lo, q = l.swap ? lo : hi;
+  return ((u64)__funnelshift_l(p, q, l.rot) << 32) | __funnelshift_l(q, p, l.rot);
+}
+
+// One keccak-f[1600] over a warp: `a` is word t of the state in thread t
+// (t < 25); returns word t of the permuted state.  Every thread of the warp
+// must call it.
+__device__ __forceinline__ u64 keccak_f_warp(u64 a, const WarpLane &l) {
+  u64 rc = 0;  // the previous round's iota, folded into this round's parity
+#pragma unroll
+  for (int rnd = 0; rnd < 24; ++rnd) {
+    const u64 v0 = __shfl_sync(FULL_MASK, a, l.mate0), v1 = __shfl_sync(FULL_MASK, a, l.mate1);
+    const u64 v2 = __shfl_sync(FULL_MASK, a, l.mate2), v3 = __shfl_sync(FULL_MASK, a, l.mate3);
+    const u64 c = a ^ (rc & l.col0) ^ v0 ^ v1 ^ v2 ^ v3;
+    a ^= rc & l.self0;
+    const u64 cm = __shfl_sync(FULL_MASK, c, l.cm), cp = __shfl_sync(FULL_MASK, c, l.cp);
+    const u64 r = rho_lane(a ^ cm ^ rotl64<1>(cp), l);
+    const u64 b0 = __shfl_sync(FULL_MASK, r, l.pi0), b1 = __shfl_sync(FULL_MASK, r, l.pi1);
+    const u64 b2 = __shfl_sync(FULL_MASK, r, l.pi2);
+    a = b0 ^ (~b1 & b2);
+    rc = KECCAK_RC[rnd];
+  }
+  return a ^ (rc & l.self0);
+}
+
+// The padding words of keccak256 of a 32-byte message (words 0-3).
+__device__ __forceinline__ u64 pad32_word(int t) {
+  return t == 4 ? 0x01ull : t == 16 ? 0x8000000000000000ull : 0ull;
+}
+
+// CHAIN_WARPS chains a block, a warp each; a warp past the last chain leaves
+// at once (the whole warp, so the shuffles stay full).
+static const int CHAIN_WARPS = 4;
+
 __global__ void keccak_chain_kernel(const u64 *__restrict__ starts, u64 *__restrict__ out,
                                     long long chains, long long skip, long long count) {
-  long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long c = (long long)blockIdx.x * CHAIN_WARPS + (threadIdx.x >> 5);
   if (c >= chains) return;
-  u64 s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) s[i] = starts[4 * c + i];
-  for (long long i = 0; i < skip; ++i) keccak256_32(s);
+  const int t = threadIdx.x & 31;
+  const WarpLane l = warp_lane(t);
+  const u64 pad = pad32_word(t);
+  u64 a = t < 4 ? starts[4 * c + t] : 0ull;
   u64 *dst = out + 4 * count * c;
-  for (long long i = 0; i < count; ++i) {
-    keccak256_32(s);
+  for (long long i = 0; i < skip + count; ++i) {
+    a = keccak_f_warp(t < 4 ? a : pad, l);
+    if (i >= skip && t < 4) dst[4 * (i - skip) + t] = a;
+  }
+}
+
+// Eight int64 bytes (each in [0, 256)) as one little-endian word.
+__device__ __forceinline__ u64 load_byte_word(const long long *p) {
+  u64 w = 0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dst[4 * i + j] = s[j];
+  for (int k = 0; k < 8; ++k) w |= (u64)(p[k] & 0xff) << (8 * k);
+  return w;
+}
+
+__device__ __forceinline__ void store_byte_word(long long *p, u64 w) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) p[k] = (long long)((w >> (8 * k)) & 0xff);
+}
+
+static const int TRANSCRIPT_BLOCK_BYTES = 136;  // the rate: 17 words
+
+// One warp.  state: 32 bytes; blocks: nblocks x 136 bytes, bytes 32-135 of
+// each the label, message and padding (bytes 0-31 are not read: the running
+// state takes their place); out: the final state (32 bytes), then with
+// `high` keccak256 of it (32 more).  The next block's words are loaded
+// before each permutation, so the loads stay off the chain.
+__global__ void keccak_transcript_kernel(const long long *__restrict__ state,
+                                         const long long *__restrict__ blocks, long long nblocks,
+                                         int high, long long *__restrict__ out) {
+  const int t = threadIdx.x;
+  const WarpLane l = warp_lane(t);
+  const bool data = t >= 4 && t < TRANSCRIPT_BLOCK_BYTES / 8;
+  u64 a = t < 4 ? load_byte_word(state + 8 * t) : 0ull;
+  u64 next = nblocks > 0 && data ? load_byte_word(blocks + 8 * t) : 0ull;
+  for (long long i = 0; i < nblocks; ++i) {
+    const u64 in = t < 4 ? a : next;
+    next = i + 1 < nblocks && data ? load_byte_word(blocks + TRANSCRIPT_BLOCK_BYTES * (i + 1) + 8 * t)
+                                   : 0ull;
+    a = keccak_f_warp(in, l);
+  }
+  if (t < 4) store_byte_word(out + 8 * t, a);
+  if (high) {
+    a = keccak_f_warp(t < 4 ? a : pad32_word(t), l);
+    if (t < 4) store_byte_word(out + 32 + 8 * t, a);
   }
 }
 
@@ -142,19 +284,25 @@ __global__ void keccak256_32_kernel(const u64 *__restrict__ msgs, u64 *__restric
   for (int i = 0; i < 4; ++i) out[4 * k + i] = s[i];
 }
 
-// 32 chains a block: the chains of a warp run in lock step, and a launch of
-// a few chains spreads its warps over the SMs.
-static const int CHAIN_THREADS = 32;
 static const int HASH_THREADS = 128;
 
 extern "C" int bp_keccak_chain(const void *starts, void *out, long long chains, long long skip,
                                long long count, void *stream) {
   if (chains < 0 || skip < 0 || count < 0) return (int)cudaErrorInvalidValue;
   if (chains > 0 && (skip > 0 || count > 0)) {
-    long long blocks = (chains + CHAIN_THREADS - 1) / CHAIN_THREADS;
-    keccak_chain_kernel<<<(unsigned)blocks, CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
+    long long blocks = (chains + CHAIN_WARPS - 1) / CHAIN_WARPS;
+    int warps = chains < CHAIN_WARPS ? (int)chains : CHAIN_WARPS;
+    keccak_chain_kernel<<<(unsigned)blocks, 32 * warps, 0, (cudaStream_t)stream>>>(
         (const u64 *)starts, (u64 *)out, chains, skip, count);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bp_keccak_transcript(const void *state, const void *blocks, long long nblocks,
+                                    int high, void *out, void *stream) {
+  if (nblocks < 0) return (int)cudaErrorInvalidValue;
+  keccak_transcript_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (const long long *)state, (const long long *)blocks, nblocks, high, (long long *)out);
   return (int)cudaGetLastError();
 }
 

@@ -483,10 +483,7 @@ def fused_ipp_body(n: int, device, table_gens: bool = False):
             LR = msm_mod._msm_multi_table_impl([(sL, recL), (sR, recR)], table, c, bits)
 
             x, y, iid = tj.lazy_points_to_affine(LR)
-            enc = tj.points_transcript_bytes(x, y, iid)       # (64, 2)
-            state = tj.absorb(state, b"L", enc[:, 0])
-            state = tj.absorb(state, b"R", enc[:, 1])
-            state, u = tj.challenge_scalar(state, b"u")
+            state, u = tj.absorb_many(state, [b"L", b"R"], tj.points_transcript_bytes(x, y, iid), b"u")
             u_inv = kernels.mod_pow_static(u.contiguous(), R - 2, FR)
             xs.append(x), ys.append(y), iids.append(iid)
 

@@ -75,16 +75,13 @@ def _program(n: int, m: int, device):
     add = lambda a, b: limb.mod_add(a, b, FR)
     sub = lambda a, b: limb.mod_sub(a, b, FR)
 
-    def absorb_points(state, labels, pts):
-        """Affine-convert a ``(3, NW, k)`` batch, absorb with per-point labels."""
+    def absorb_points(state, labels, pts, challenge=None):
+        """Affine-convert a ``(3, NW, k)`` batch, absorb with per-point
+        labels, then squeeze ``challenge`` if given: one keccak launch.
+        Returns ``(state, u, (x, y, is_id))``."""
         x, y, iid = tj.lazy_points_to_affine(pts)
-        enc = tj.points_transcript_bytes(x, y, iid)
-        for i, lbl in enumerate(labels):
-            state = tj.absorb(state, lbl, enc[:, i])
-        return state, (x, y, iid)
-
-    def absorb_scalar(state, lbl, s_col):
-        return tj.absorb(state, lbl, tj.felt_bytes_le(s_col)[:, 0])
+        state, u = tj.absorb_many(state, labels, tj.points_transcript_bytes(x, y, iid), challenge)
+        return state, u, (x, y, iid)
 
     def run(state, bits, v, gamma, alpha_sum, rho_sum, sL, sR, t1b_sum, t2b_sum,
             G, H, fb_table, split_table):
@@ -113,10 +110,9 @@ def _program(n: int, m: int, device):
         S_msm = msm_mod._msm_multi_table_impl([(s4_S, rec_S)], split_table, msm_mod.SPLIT_WINDOW)
         S_pt = kernels.point_add(S_msm, S_blind.contiguous())
 
-        state, (Vx, Vy, Vid) = absorb_points(state, [b"V"] * m, V_pts)
-        state, (ASx, ASy, ASid) = absorb_points(state, [b"A", b"S"],
-                                                torch.cat([A_pt, S_pt], dim=-1))
-        state, y_ch = tj.challenge_scalar(state, b"y")
+        state, _, (Vx, Vy, Vid) = absorb_points(state, [b"V"] * m, V_pts)
+        state, y_ch, (ASx, ASy, ASid) = absorb_points(state, [b"A", b"S"],
+                                                      torch.cat([A_pt, S_pt], dim=-1), b"y")
         state, z_ch = tj.challenge_scalar(state, b"z")
 
         # ---- l/r polynomial coefficients over the nm lanes ---------------
@@ -143,18 +139,16 @@ def _program(n: int, m: int, device):
         T_pts = msm_mod.fixed_commit(
             fb_table, torch.zeros(2, dtype=torch.int64, device=device), torch.cat([t1, t2], dim=-1),
             torch.full((2,), FB_STRIDE, device=device), torch.cat([t1b_sum, t2b_sum], dim=-1))
-        state, (Tx, Ty, Tid) = absorb_points(state, [b"T_1", b"T_2"], T_pts)
-        state, x_ch = tj.challenge_scalar(state, b"x")
+        state, x_ch, (Tx, Ty, Tid) = absorb_points(state, [b"T_1", b"T_2"], T_pts, b"x")
 
         # ---- proof shares (aggregated) -------------------------------------
         t_x = add(t0, mul(x_ch, add(t1, mul(x_ch, t2))))
         zgamma = inner(z_pows_m, gamma)
         t_x_blinding = add(mul(zz, zgamma), mul(x_ch, add(t1b_sum, mul(x_ch, t2b_sum))))
         e_blinding = add(alpha_sum, mul(x_ch, rho_sum))
-        state = absorb_scalar(state, b"t_x", t_x)
-        state = absorb_scalar(state, b"t_x_blinding", t_x_blinding)
-        state = absorb_scalar(state, b"e_blinding", e_blinding)
-        state, w_ch = tj.challenge_scalar(state, b"w")
+        state, w_ch = tj.absorb_many(
+            state, [b"t_x", b"t_x_blinding", b"e_blinding"],
+            tj.felt_bytes_le(torch.cat([t_x, t_x_blinding, e_blinding], dim=-1)), b"w")
         # Q = w B never exists as a point: the IPP's Q term rides base B of
         # the split table with scalar c w
 
@@ -164,8 +158,7 @@ def _program(n: int, m: int, device):
         y_inv = kernels.mod_pow_static(y_ch.contiguous(), R - 2, FR)
         wH = limb.powers(y_inv[:, 0], nm, FR)
         wG = limb.from_const(1, (nm,), device)
-        state = tj.absorb(state, b"dom-sep", tj.bytes_tensor(pad_label(b"ipp v1"), device))
-        state = tj.absorb(state, b"n", tj.bytes_tensor(nm.to_bytes(8, "little"), device))
+        state, _ = tj.absorb_many(state, [b"dom-sep", b"n"], [pad_label(b"ipp v1"), nm.to_bytes(8, "little")])
         state, a_fin, b_fin, Lx, Ly, Lid = ipp_run(state, l_vec, r_vec, wG, wH, split_table, w_ch)
 
         return packio.pack_device([

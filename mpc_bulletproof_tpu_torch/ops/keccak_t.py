@@ -8,8 +8,10 @@ shift in a rotation is masked to the bits it brings in.  Transcript
 messages are ``(len,)`` int64 byte tensors of a length known to the
 caller; every transcript absorb of the protocol fits one block (at most
 135 bytes), so only that path exists.  :func:`keccak_chain_plain` and
-:func:`keccak256_32_plain` take ``(k, 32)`` uint8 byte rows: the plain
-versions of ``csrc/keccak.cu`` (wrappers in :mod:`.kernels`).
+:func:`keccak256_32_plain` take ``(k, 32)`` uint8 byte rows, and
+:func:`keccak_transcript_plain` a run of ``(j, 136)`` int64 transcript
+blocks: the plain versions of ``csrc/keccak.cu`` (wrappers in
+:mod:`.kernels`).
 """
 
 from __future__ import annotations
@@ -72,6 +74,14 @@ def keccak_f1600(a: torch.Tensor) -> torch.Tensor:
     return a.reshape(shape)
 
 
+def _hash_block(block: torch.Tensor) -> torch.Tensor:
+    """keccak256 of one padded ``(136,)`` int64 byte block -> ``(32,)`` bytes."""
+    sh = _const("keccak_sh8", block.device, lambda: torch.arange(0, 64, 8, dtype=torch.int64))
+    lanes = (block.reshape(17, 8) << sh).sum(dim=1)  # disjoint bits: sum == or
+    a = keccak_f1600(torch.cat([lanes, lanes.new_zeros(8)]))
+    return ((a[:4, None] >> sh) & 0xFF).reshape(32)
+
+
 def keccak256(data: torch.Tensor, length: int) -> torch.Tensor:
     """keccak-256 of a ``(length,)`` int64 byte tensor -> ``(32,)`` bytes."""
     if length > RATE - 1:
@@ -82,11 +92,19 @@ def keccak256(data: torch.Tensor, length: int) -> torch.Tensor:
     block[:length] = data
     block[length] = 0x01
     block[RATE - 1] |= 0x80
-    sh = _const("keccak_sh8", data.device, lambda: torch.arange(0, 64, 8, dtype=torch.int64))
-    lanes = (block.reshape(17, 8) << sh).sum(dim=1)  # disjoint bits: sum == or
-    a = torch.cat([lanes, lanes.new_zeros(8)])
-    a = keccak_f1600(a)
-    return ((a[:4, None] >> sh) & 0xFF).reshape(32)
+    return _hash_block(block)
+
+
+def keccak_transcript_plain(state: torch.Tensor, blocks: torch.Tensor, high: bool) -> torch.Tensor:
+    """A run of transcript blocks: ``state <- keccak256(state || block[32:])``
+    for each padded ``(136,)`` row of ``blocks`` (``(j, 136)`` int64 bytes,
+    label, message and padding from byte 32 on), the final ``(32,)`` state;
+    with ``high`` that state followed by its keccak256, ``(64,)``."""
+    for block in blocks:
+        state = _hash_block(torch.cat([state, block[32:]]))
+    if not high:
+        return state.clone()
+    return torch.cat([state, keccak256(state, 32)])
 
 
 # -- the generator chains: 32-byte messages in (k, 32) uint8 rows ------------

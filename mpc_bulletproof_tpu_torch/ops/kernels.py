@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels, their wrappers and their plain versions.
 
-Fifteen kernels.  Ten carry the point, inverse and field work, each
+Sixteen kernels.  Ten carry the point, inverse and field work, each
 replacing one Pallas kernel of ``mpc_bulletproof_tpu/ops/kernels.py``:
 
 ==============================  =======================  =======================
@@ -22,10 +22,13 @@ The last three compute the device share plane's fixed expressions, which
 the JAX package composes from ``_vec2``'s ops, in one launch each.  Three
 more, ``probe_chain``, ``probe_xor_chain`` and ``probe_accum``
 (``probes.cu``, wrappers in :mod:`.probes`), replace the Pallas op-rate
-probes of the JAX package's benches.  The last two, ``keccak_chain`` and
-``keccak256_32`` (``keccak.cu``), replace no Pallas kernel: they walk the
-generator chains, which the JAX package walks with its native engine's
-keccak on the host (:mod:`..generators`).
+probes of the JAX package's benches.  The last three, ``keccak_chain``,
+``keccak256_32`` and ``keccak_transcript`` (``keccak.cu``), replace no
+Pallas kernel: the first two walk the generator chains, which the JAX
+package walks with its native engine's keccak on the host
+(:mod:`..generators`); the third runs the tensor transcript's hash chain
+(:mod:`.transcript_t`), which the JAX package writes in jnp
+(``ops/keccak_jax.py``) inside its fused prover's one program.
 
 The provers and the verifiers launch ``point_add``, ``point_scan_steps_inner``,
 ``point_horner_multi``, ``point_reduce`` and ``mod_pow_static``; the
@@ -33,7 +36,9 @@ collaborative prover's device share plane (:mod:`..parallel.device_shares`)
 launches the vector ops and the three share-plane entries;
 ``point_scan_steps`` and the probes serve callers of the library (the JAX
 package calls them only from its benches); ``BulletproofGens`` launches
-the two keccak kernels.
+``keccak_chain`` and ``keccak256_32``; every absorb and challenge of the
+tensor transcript (the fused range prover, the fused IPP rounds) launches
+``keccak_transcript``.
 
 Every wrapper checks dtype, shape and contiguity the same way for every
 device.  For a tensor on the CPU it runs the plain PyTorch version beside
@@ -61,7 +66,7 @@ from pathlib import Path
 import torch
 
 from .curve_t import _point_add, identity
-from .keccak_t import keccak256_32_plain, keccak_chain_plain
+from .keccak_t import RATE, keccak256_32_plain, keccak_chain_plain, keccak_transcript_plain
 from .limb import (FP, FR, NW, ModParams, from_pieces, ints_to_words, mod_add, mod_mul, mod_sub,
                    mont_mul_p, to_pieces)
 
@@ -90,6 +95,7 @@ KERNELS = {
     "probe_accum": ("probes.cu", "bp_probe_accum", [_P, _P, _P, _LL, _I, _I, _P]),
     "keccak_chain": ("keccak.cu", "bp_keccak_chain", [_P, _P, _LL, _LL, _LL, _P]),
     "keccak256_32": ("keccak.cu", "bp_keccak256_32", [_P, _P, _LL, _P]),
+    "keccak_transcript": ("keccak.cu", "bp_keccak_transcript", [_P, _P, _LL, _I, _P, _P]),
 }
 
 # Launches per kernel since the last reset_launches(); only a launch of the
@@ -696,7 +702,7 @@ def keccak_chain(starts: torch.Tensor, skip: int, count: int) -> torch.Tensor:
     """Walk each of the ``(C, 32)`` start states ``skip`` steps of
     ``s <- keccak256(s)`` without writing, then ``count`` steps, and return
     those ``(C, count, 32)`` states (a generator chain's walk, one chain a
-    thread)."""
+    warp)."""
     dev = _check_rows32(starts, "keccak_chain starts")
     skip, count = int(skip), int(count)
     if skip < 0 or count < 0:
@@ -716,4 +722,28 @@ def keccak256_32(msgs: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(msgs)
     if msgs.shape[0]:
         _launch("keccak256_32", msgs.data_ptr(), out.data_ptr(), msgs.shape[0])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# keccak_transcript: the Fiat-Shamir transcript's hash chain
+# ---------------------------------------------------------------------------
+
+def keccak_transcript(state: torch.Tensor, blocks: torch.Tensor, high: bool) -> torch.Tensor:
+    """Run the ``(j, 136)`` transcript blocks from the ``(32,)`` ``state``:
+    ``state <- keccak256(state || block[32:])`` for each row (label,
+    message and padding from byte 32 on; bytes 0-31 are not read), one
+    warp, one launch.  Returns the final ``(32,)`` state, or with ``high``
+    that state followed by its keccak256, ``(64,)`` (a challenge's
+    ``hash_to_scalar`` input).  Bytes are int64 values in [0, 256)."""
+    dev = _check(state, "keccak_transcript state", shape=(32,))
+    if _check(blocks, "keccak_transcript blocks") != dev or blocks.device != state.device:
+        raise ValueError("keccak_transcript: state and blocks must be on the same device")
+    if blocks.dim() != 2 or blocks.shape[1] != RATE:
+        raise ValueError(f"keccak_transcript blocks: expected (j, {RATE}) rows, got {tuple(blocks.shape)}")
+    if dev == "cpu":
+        return keccak_transcript_plain(state, blocks, high)
+    out = torch.empty(64 if high else 32, dtype=torch.int64, device=state.device)
+    _launch("keccak_transcript", state.data_ptr(), blocks.data_ptr(), blocks.shape[0], int(bool(high)),
+            out.data_ptr())
     return out
