@@ -79,14 +79,22 @@ Phases, one JSON object per line on standard output:
    device tensors, its seconds split into walk, keccak, reduction,
    fixed-base products, affine conversion and host lists; the launches of
    the wide set-up and a profile of it (counts must match).
-   ``transcript``: ``keccak_transcript`` (a warp runs a sequence of
-   transcript blocks, then optionally keccak256 of the final state)
-   against its plain version byte for byte: runs of 1, 2, 3 and 64
-   absorbs, with and without the closing challenge, total lengths 32 to
-   135 (``TRANSCRIPT_LENGTHS``), states and bytes from ``--seed``;
+   ``transcript``: ``keccak_transcript`` (a block a transcript: four
+   warps stage the run's template, layout and message words in shared
+   memory, warp 0 runs the blocks, warp 1 hashes and reduces each
+   challenge mod r beside it) against its plain version, states and
+   challenges word for word: runs of 1, 2, 3 and 64 absorbs at every block
+   length of ``TRANSCRIPT_LENGTHS``, the challenges at the end, after
+   every absorb or none, random and all-zero messages, 1 and
+   ``TRANSCRIPT_MANY`` transcripts a launch, words from ``--seed``;
    ``transcript_t.absorb_many`` against the same run on the CPU and its
-   refusal of 136 bytes; device ms at an IPP round's run and at the range
-   prover's V run, with the bound and the design's floors.
+   refusal of 136 bytes; device ms at an IPP round's run, the V run (64
+   absorbs; and V.., A, S, y, z as the prover runs it), a whole (64, 64)
+   verification's replay and a batch of two, with the bound
+   (:func:`transcript_bound`) and the design's floors; and the kernel's
+   reduction mod r (``csrc/keccak.cu`` ``fr_reduce_u512``, built into
+   ``tools/keccak_epilogue_check.cu`` beside the port's libraries) on its
+   edge values and its borrow branch, against ``v mod r`` in Python ints.
 5. ``main_path``: ``RangeProof.prove_multiple`` at (n, m) = (64, 64) on the
    pinned inputs; the digest of proof, commitments and transcript must equal
    the JAX package's (``mpc_bulletproof_tpu_torch/pinned.py``).  Launch
@@ -100,14 +108,18 @@ Phases, one JSON object per line on standard output:
    plain torch).
 6. ``verify``: ``verify_multiple`` of that proof; two tampered copies (t_x + 1,
    L_1 swapped with R_1) must raise ``VerificationError``; ``verify_batch``
-   of it and a second proof must pass.  Launch counts around one
-   verification, then the median of warm ones, split into the host terms
-   and the MSM.
+   of it and a second proof must pass, its two transcripts replayed in one
+   ``keccak_transcript`` launch; ``replay``: the verification's whole
+   transcript replayed on the card in one launch gives the host route's
+   challenges and final state.  Launch counts around one verification,
+   then the median of warm ones, split into the host terms (the replay
+   included) and the MSM.
 7. ``rp_sweep``: the reference's range-proof sweep on the main path's
    generators: config 1 (``prove_single`` of the README's 32-bit value,
    ``verify_single``) and config 2 at ``RP_SWEEP_M`` values, each a cold
    proof against ``pinned.DIGESTS``, a warm one and a verification; at m
-   = 1 a tampered copy (t_x + 1) must raise ``VerificationError`` and the
+   = 1 a tampered copy (t_x + 1) must raise ``VerificationError``, its
+   replay must be the host route's (``replay``), and the
    verification is the median of ``VERIFY_MEDIAN_RUNS`` calls beside its
    host terms and its MSM.
 8. ``party_dealer``: the same (64, 64) proof by the party/dealer protocol
@@ -229,9 +241,10 @@ Phases, one JSON object per line on standard output:
    configurations and resident warps a scheduler), the card's
    ``profiles`` line (each profiled run's device launches and idle share
    beside ``PARENT_PROFILES``, the figures PERF.md §5 records for the tree
-   before the transcript kernel), the card's
-   ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
-   {...}}``.
+   before the transcript kernel; ``prove_launches``: the (64, 64)
+   prove's beside ``PARENT_PROVE_LAUNCHES``, the parent tree's), the
+   card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 Each path asserts that the kernels it must run were launched.
 
@@ -275,14 +288,19 @@ WARM_R1CS = 3
 KECCAK_CHAIN_CHECKS = ((2, 0, 256), (128, 64, 64), (33, 3, 1))
 KECCAK_HASH_N = 1 << 18
 # The transcript kernel held to its plain version: runs of 1, 2, 3 and 64
-# absorbs, with and without the closing challenge, the total length of
-# each absorb (state, label, message) cycling through TRANSCRIPT_LENGTHS
-# (a run of one absorb takes each length in turn); states and bytes from
-# --seed.  Timed at the IPP round's run (2 absorbs of 128 bytes and u) and
-# at the range prover's V run (64 absorbs of 128 bytes).
-TRANSCRIPT_LENGTHS = (32, 33, 64, 72, 96, 128, 134, 135)
+# absorbs, the length of each block (state, label, message words) cycling
+# through TRANSCRIPT_LENGTHS (a run of one absorb takes each length in
+# turn; a message is whole 64-bit words, so every length is a multiple of
+# 8), the challenges at the end, after every absorb, or none, messages
+# random or all zeros (identity points), 1 and TRANSCRIPT_MANY transcripts
+# a launch; states and words from --seed.  Timed at the IPP round's run (L,
+# R, u), the range prover's V run as the parent tree's row timed it (64 absorbs of 128
+# bytes) and as the prover runs it now (V.., A, S, y, z at m = 64), and a
+# whole (64, 64) verification's replay (TRANSCRIPT_VERIFY).
+TRANSCRIPT_LENGTHS = (32, 40, 64, 72, 96, 104, 128)
 TRANSCRIPT_RUNS = (1, 2, 3, 64)
-TRANSCRIPT_TIMED = {"ipp_round": (2, True), "v_run": (64, False)}
+TRANSCRIPT_MANY = 3
+TRANSCRIPT_VERIFY = (64, 64)
 GENS_SIZES = (2, 8, 64, 256, 1024)
 GENS_WIDE = 1 << 17
 GENS_AGGREGATED = (64, 64)
@@ -623,11 +641,13 @@ REPLACES = {
 VEC2_FAMILY = ("vec2", "beaver_diff", "beaver_combine", "poly3_eval")
 # The kernels each path must launch (vec2: the IPP rounds' scalar products;
 # keccak_transcript: every absorb and challenge of ops/transcript_t.py, which
-# the fused range prover and the fused IPP rounds run).
+# the fused range prover and the fused IPP rounds run, and the range-proof
+# and IPP verifiers' replay).
 PATH_KERNELS = {
     "prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
               "mod_pow_static", "vec2", "keccak_transcript"},
-    "verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
+    "verify": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
+               "keccak_transcript"},
     "msm": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce"},
     "r1cs_prove": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce",
                    "mod_pow_static", "vec2", "keccak_transcript"},
@@ -667,6 +687,10 @@ PARENT_PROFILES = {
     "gens": {"device_launches": None, "device_idle_share": 0.61},
 }
 PROVE_LAUNCH_DROP = 70000
+# The parent tree's (64, 64) prove, with the challenges reduced in plain
+# torch (PERF.md §5: device launches, NVIDIA H100 80GB HBM3, 700 W), for
+# the profiles line.
+PARENT_PROVE_LAUNCHES = 28670
 
 
 def emit(obj) -> None:
@@ -1643,6 +1667,34 @@ def tampered(proof, case: str):
     return RangeProof.from_bytes(data)
 
 
+def replay_check(proof, V, n_bits: int, tr, dev) -> dict:
+    """A verification's transcript replay on the card against the host
+    route: one ``keccak_transcript`` launch, the same challenges, and the
+    caller's transcript left in the host route's final state.  Raises if
+    any differs."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch import transcript
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    steps = proof._transcript_steps(V, n_bits)
+    host, host_us = tr(), []
+    for label, msg in steps:
+        if msg is None:
+            host_us.append(int(host.challenge_scalar(label)))
+        else:
+            host.append_message(label, msg)
+    on_card = tr()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    card_us = transcript.replay([on_card], [steps], dev)[0]
+    res = {"blocks": len(steps), "challenges": len(card_us), "launches_one_verify": kernels.launches["keccak_transcript"],
+           "challenges_equal": card_us == host_us, "state_equal": on_card.state == host.state}
+    if not (res["challenges_equal"] and res["state_equal"] and res["launches_one_verify"] == 1):
+        raise RuntimeError(f"the replay on the card is not the host route's: {res}")
+    return res
+
+
 def verify_phase(gpu: str, dev, mp: dict, n_bits: int = N_BITS) -> dict:
     """Verify the main path's proof, reject two tampered copies, verify a
     batch of two; launches and times of one verification."""
@@ -1682,22 +1734,29 @@ def verify_phase(gpu: str, dev, mp: dict, n_bits: int = N_BITS) -> dict:
     batch = lambda second: RangeProof.verify_batch(
         [proof, second], bp_gens, pc_gens, [tr(), HashChainTranscript(b"batch-2")], [V, V2], n_bits,
         device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
     batch(proof2)
+    batch_replays = kernels.launches["keccak_transcript"]
     try:
         batch(tampered(proof2, "t_x+1"))
     except VerificationError:
         rejected["batch_t_x+1"] = True
     else:
         raise RuntimeError("verify_batch accepted a batch with a tampered proof")
+    replay = replay_check(proof, V, n_bits, tr, dev)
+    replay["launches_batch_of_2"] = batch_replays
+    if replay["launches_batch_of_2"] != 1:
+        raise RuntimeError(f"verify_batch replayed its transcripts in {batch_replays} launches, not 1")
 
     # interleaved, so the split and the whole see the same host
-    (g, h), scalars, points = proof._verification_terms(bp_gens, pc_gens, tr(), V, n_bits)
+    (g, h), scalars, points = proof._verification_terms(bp_gens, pc_gens, tr(), V, n_bits, device=dev)
     warm, terms, msm = [], [], []
     for _ in range(WARM_VERIFIES):
         warm += host_ms(verify, 1)
-        terms += host_ms(lambda: proof._verification_terms(bp_gens, pc_gens, tr(), V, n_bits), 1)
+        terms += host_ms(lambda: proof._verification_terms(bp_gens, pc_gens, tr(), V, n_bits, device=dev), 1)
         msm += host_ms(lambda: backend.gens_msm(bp_gens, scalars + g + h, points, n_bits, m, device=dev), 1)
-    res = {"phase": "verify", "n": n_bits, "m": m, "verified": True, "rejected": rejected,
+    res = {"phase": "verify", "n": n_bits, "m": m, "verified": True, "rejected": rejected, "replay": replay,
            "batch_of_2_verified": True, "msm_points": len(scalars) + len(g) + len(h),
            "cold_verify_s": cold_s, "warm_verify_ms": warm, "host_terms_ms": terms, "msm_ms": msm,
            "us_per_verify_median": statistics.median(warm) * 1e3,
@@ -2018,7 +2077,7 @@ def tensor_gens_digest(bp_gens, n: int, m: int, dev) -> str:
         x, y, is_id = transcript_t.lazy_points_to_affine(pts)
         if bool(is_id.any()):
             raise RuntimeError("gens: an identity generator")
-        be = lambda w: np.flip(transcript_t.felt_bytes_le(w).T.cpu().numpy().astype(np.uint8), axis=1)
+        be = lambda w: np.flip(np.ascontiguousarray(w.T.cpu().numpy()).astype("<i8").view(np.uint8), axis=1)
         h.update(np.ascontiguousarray(np.concatenate([be(x), be(y)], axis=1)).tobytes())
     return h.hexdigest()
 
@@ -2115,31 +2174,146 @@ def gens_phase(gpu: str, dev) -> dict:
     return res
 
 
-def transcript_blocks(gen, dev, lengths) -> "torch.Tensor":
-    """One padded ``(136,)`` int64 block per total length in ``lengths``:
-    random bytes below it (bytes 0-31 too, which the kernel must not read),
-    0x01 at it, zeros above, and 0x80 or'ed into byte 135 (0x81 at 135)."""
+def transcript_steps(lengths, challenges: str) -> list:
+    """A run of absorbs of the given block lengths (bytes of state, label
+    and message words: a 32-byte label from 64 on, none below) with
+    ``challenges`` "end" (one after the run), "between" (one after every
+    absorb) or "none"."""
+    steps = []
+    for i, total in enumerate(lengths):
+        label = b"l%d" % i if total >= 64 else b""
+        steps.append((label, (total - 32 - (32 if label else 0)) // 8))
+        if challenges == "between":
+            steps.append((b"c%d" % i, None))
+    return steps + ([(b"end", None)] if challenges == "end" else [])
+
+
+def verify_replay_steps(n: int, m: int) -> list:
+    """A (n, m) range-proof verification's transcript as steps, every
+    message a device word run: ``RangeProof._transcript_steps`` of a
+    stand-in proof (every point the generator, every scalar 0, log2(n m)
+    IPP rounds), each message mapped to its length in words, so the timed
+    run is the one the verifier makes."""
+    from mpc_bulletproof_tpu_torch import InnerProductProof, RangeProof, Scalar
+    from mpc_bulletproof_tpu_torch.ops.curve import StarkPoint
+
+    G, zero = StarkPoint.generator(), Scalar(0)
+    rounds = (n * m - 1).bit_length()
+    proof = RangeProof(G, G, G, G, zero, zero, zero, InnerProductProof([G] * rounds, [G] * rounds, zero, zero))
+    return [(label, None if msg is None else len(msg) // 8) for label, msg in proof._transcript_steps([G] * m, n)]
+
+
+def transcript_bound(steps: list, transcripts: int) -> dict:
+    """The bound of ``transcripts`` runs of ``steps``: the larger of the
+    bytes (each transcript's start state and message words read and its
+    state and challenges written, the template and layout read once), the
+    issue time of its permutations (one a block, one more a challenge,
+    ``KECCAK_F_NEEDS`` each) and its dependency bound (the run's blocks in
+    a row, and the last challenge's hash after them, at
+    ``KECCAK_F_DEPTH`` dependent instructions a permutation)."""
+    blocks = len(steps)
+    chal = sum(1 for _, m in steps if m is None)
+    words = sum(m for _, m in steps if m is not None)
+    moved = 8 * (transcripts * (4 + words + 4 + 4 * chal) + blocks * (17 + 4))
+    perms = blocks + int(steps[-1][1] is None)
+    bnd = bound(moved, needs((transcripts * (blocks + chal), KECCAK_F_NEEDS)))
+    dep_ms = perms * KECCAK_F_DEPTH * DEP_LATENCY_CYCLES / (SM_CLOCK_MHZ * 1e3)
+    kind = "dependency" if dep_ms >= bnd["bound_ms"] else "issue"
+    if dep_ms > bnd["bound_ms"]:
+        bnd.update(bound_ms=dep_ms, bound_by="operations")
+    return {**bnd, "dependency_bound_ms": dep_ms, "bound_kind": kind, "bytes_moved": moved,
+            "chain_permutations": perms}
+
+
+def start_epilogue_build():
+    """Start ``nvcc`` on ``tools/keccak_epilogue_check.cu`` (the transcript
+    kernel's ``fr_reduce_u512`` on chosen values; it includes the port's
+    ``csrc/keccak.cu``) with the port's flags, beside the port's own
+    builds.  Returns ``(process, library)``; ``main`` waits for it with
+    the port's build."""
+    from pathlib import Path
+
+    from mpc_bulletproof_tpu_torch.ops import kernels
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = kernels.BUILD_DIR / "keccak_epilogue_check.so"
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o", str(lib),
+           str(Path(__file__).resolve().parent / "tools" / "keccak_epilogue_check.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def epilogue_values() -> list:
+    """512-bit values ``(lo, hi)`` for the epilogue: ``fr_reduce_u512``'s
+    edges (all zeros, all 0xFF, multiples of r and their neighbours,
+    2^251), halves whose top five bits q give ``v < q r`` (the borrow
+    branch of ``fr_reduce_u256``, which a keccak output reaches with
+    probability ~2^-54), and 64 random values from ``--seed``."""
+    import random
+
+    from mpc_bulletproof_tpu_torch.constants import R
+
+    top = (1 << 256) - 1
+    vals = [(0, 0), (top, top), (R, R), (R - 1, R - 1), (31 * R + 1, 31 * R + 1), (31 * R - 1, 1),
+            (2 * R + 1, 0), (1 << 251, (1 << 251) - 1), ((17 << 251) + 5, 31 << 251)]
+    vals += [((q << 251) + d, (q << 251) + q * d) for q in (1, 2, 16, 31) for d in (0, 1, 7)]
+    rnd = random.Random(SEED)
+    vals += [(rnd.getrandbits(256), rnd.getrandbits(256)) for _ in range(64)]
+    return vals
+
+
+def epilogue_check(dev, build) -> dict:
+    """The transcript kernel's reduction mod r (compiled from
+    ``csrc/keccak.cu`` into ``tools/keccak_epilogue_check.cu``) on
+    :func:`epilogue_values`, held to Python's ``v mod r`` and to the plain
+    version's ``limb.reduce_512`` on the card; fails unless the borrow
+    branch was taken.  ``build``: the build's ``(exit code, log,
+    library)``.  Its launches are not the port's."""
+    import ctypes
+
     import torch
 
-    rows = torch.randint(0, 256, (len(lengths), 136), generator=gen, device=dev, dtype=torch.int64)
-    col = torch.arange(136, device=dev)
-    total = torch.as_tensor(list(lengths), device=dev)[:, None]
-    rows = torch.where(col < total, rows, 0) | torch.where(col == total, 0x01, 0)
-    rows[:, 135] |= 0x80
-    return rows
+    from mpc_bulletproof_tpu_torch.constants import R
+    from mpc_bulletproof_tpu_torch.ops import limb
+
+    rc, log, lib = build
+    if rc:
+        raise RuntimeError(f"nvcc failed for tools/keccak_epilogue_check.cu:\n{log}")
+    fn = ctypes.CDLL(str(lib)).check_fr_reduce_u512
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int
+    vals = epilogue_values()
+    mask = (1 << 64) - 1
+    to_i64 = lambda w: w - (1 << 64) if w >> 63 else w
+    rows = [[to_i64((v >> (64 * j)) & mask) for v in (lo, hi) for j in range(4)] for lo, hi in vals]
+    words = torch.tensor(rows, dtype=torch.int64, device=dev)
+    got = torch.empty((len(vals), 4), dtype=torch.int64, device=dev)
+    if fn(words.data_ptr(), got.data_ptr(), len(vals), torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("check_fr_reduce_u512: launch failed")
+    plain = limb.reduce_512(torch.cat([limb.to_pieces(words[:, :4].T), limb.to_pieces(words[:, 4:].T)]), limb.FR)
+    card = [sum((w & mask) << (64 * j) for j, w in enumerate(row)) for row in got.tolist()]
+    want = [(lo + (hi << 256)) % R for lo, hi in vals]
+    borrow = lambda v: v < (v >> 251) * R
+    res = {"values": len(vals), "borrows": sum(borrow(lo) + borrow(hi) for lo, hi in vals),
+           "equal_mod_r": card == want, "equal_plain": limb.words_to_ints(plain) == want}
+    if not (res["equal_mod_r"] and res["equal_plain"] and res["borrows"]):
+        bad = [i for i, (c, w) in enumerate(zip(card, want)) if c != w]
+        raise RuntimeError(f"the transcript's reduction mod r disagrees on the card: {res}, values {bad[:8]}")
+    return res
 
 
-def transcript_phase(gpu: str, dev) -> dict:
-    """``keccak_transcript`` on the card against its plain version byte for
-    byte: runs of ``TRANSCRIPT_RUNS`` absorbs, with and without the closing
-    challenge, at every total length of ``TRANSCRIPT_LENGTHS`` (135
-    included), states and bytes from ``--seed``; then
-    ``transcript_t.absorb_many`` (template, message scatter, launch) at an
-    IPP round's shape against the same run on the CPU, challenge scalar
-    included, and its refusal above 135 bytes.  Timed at
-    ``TRANSCRIPT_TIMED``: device ms, the plain version's ms, the bound
-    (bytes, the function's issue and dependency) and the warp design's
-    floors.  Returns ``{"keccak_transcript": row}``."""
+def transcript_phase(gpu: str, dev, epilogue_build) -> dict:
+    """``keccak_transcript`` on the card against its plain version, states
+    and challenges word for word: runs of ``TRANSCRIPT_RUNS`` absorbs at
+    every block length of ``TRANSCRIPT_LENGTHS``, the challenges at the
+    end, after every absorb or none, random and all-zero messages, 1 and
+    ``TRANSCRIPT_MANY`` transcripts a launch, states and words from
+    ``--seed``; then ``transcript_t.absorb_many`` at an IPP round's shape
+    against the same run on the CPU, and its refusal above 135 bytes.
+    Timed at the IPP round, the V run (64 absorbs, and the prover's V, A,
+    S, y, z) and a whole (64, 64) verification's replay: device ms, the
+    plain version's ms, the bound (:func:`transcript_bound`) and the warp
+    design's floors.  Then the kernel's reduction mod r on chosen values
+    (:func:`epilogue_check`, ``epilogue_build`` from
+    :func:`start_epilogue_build`).  Returns ``{"keccak_transcript": row}``."""
     import torch
 
     from mpc_bulletproof_tpu_torch.ops import keccak_t, kernels
@@ -2147,47 +2321,63 @@ def transcript_phase(gpu: str, dev) -> dict:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    state32 = lambda: torch.randint(0, 256, (32,), generator=gen, device=dev, dtype=torch.int64)
+    words = lambda *shape: torch.randint(-(1 << 63), (1 << 63) - 1, shape, generator=gen, device=dev,
+                                         dtype=torch.int64)
     cases, worst = [], 0.0
     for j in TRANSCRIPT_RUNS:
         runs = ([[n] for n in TRANSCRIPT_LENGTHS] if j == 1 else
                 [[TRANSCRIPT_LENGTHS[i % len(TRANSCRIPT_LENGTHS)] for i in range(j)]])
         for lengths in runs:
-            for high in (False, True):
-                st, blocks = state32(), transcript_blocks(gen, dev, lengths)
-                got = kernels.keccak_transcript(st, blocks, high)
-                want = keccak_t.keccak_transcript_plain(st, blocks, high)
-                err = float((got - want).abs().max())
-                worst = max(worst, err)
-                cases.append({"absorbs": j, "lengths": lengths if j < 64 else "cycled", "challenge": high,
-                              "equal": bool(torch.equal(got, want)), "max_abs_err": err})
-    # the transcript's own entry: template, scatter and launch, against the CPU
-    st, enc = state32(), torch.randint(0, 256, (64, 2), generator=gen, device=dev, dtype=torch.int64)
-    s_card, u_card = tj.absorb_many(st, [b"L", b"R"], enc, b"u")
-    s_cpu, u_cpu = tj.absorb_many(st.cpu(), [b"L", b"R"], enc.cpu(), b"u")
+            for challenges in ("end", "between", "none"):
+                for many, zeros in ((1, False), (TRANSCRIPT_MANY, False), (1, True)):
+                    plan = tj._plan(tuple(transcript_steps(lengths, challenges)), dev)
+                    starts, msgs = words(many, 4), words(many, plan.words)
+                    if zeros:
+                        msgs.zero_()
+                    got = kernels.keccak_transcript(starts, plan, msgs)
+                    want = keccak_t.keccak_transcript_plain(starts, *plan[:2], msgs, plan.challenges)
+                    err = max(max_abs_err(g, w, 1) if g.numel() else 0.0 for g, w in zip(got, want))
+                    worst = max(worst, err)
+                    cases.append({"absorbs": j, "lengths": lengths if j < 64 else "cycled",
+                                  "challenges": challenges, "transcripts": many, "zero_messages": zeros,
+                                  "equal": all(torch.equal(g, w) for g, w in zip(got, want)), "max_abs_err": err})
+    # the transcript's own entry: plan, launch, challenge, against the CPU
+    st, enc = words(4), words(16)
+    steps = [(b"L", 8), (b"R", 8), (b"u", None)]
+    s_card, u_card = tj.absorb_many(st, steps, enc)
+    s_cpu, u_cpu = tj.absorb_many(st.cpu(), steps, enc.cpu())
     api = {"equal": bool(torch.equal(s_card.cpu(), s_cpu) and torch.equal(u_card.cpu(), u_cpu))}
     try:
-        tj.absorb_many(st, [b"x"], enc.new_zeros((72, 1)))     # 32 + 32 + 72 = 136 bytes
+        tj.absorb_many(st, [(b"x", 9)], enc[:9])     # 32 + 32 + 72 = 136 bytes
         api["refuses_136"] = False
     except ValueError:
         api["refuses_136"] = True
 
+    shapes = {"ipp_round": (steps, 1),
+              "v_run": ([(b"V", 8)] * 64, 1),
+              "v_run_A_S_y_z": ([(b"V", 8)] * 64 + [(b"A", 8), (b"S", 8), (b"y", None), (b"z", None)], 1),
+              "verify_64x64": (verify_replay_steps(*TRANSCRIPT_VERIFY), 1),
+              "verify_batch_2": (verify_replay_steps(*TRANSCRIPT_VERIFY), 2)}
     timed = {}
-    for what, (j, high) in TRANSCRIPT_TIMED.items():
-        st, blocks = state32(), transcript_blocks(gen, dev, [128] * j)
-        run = lambda: kernels.keccak_transcript(st, blocks, high)
-        _, plain_ms = timed_ms(lambda: keccak_t.keccak_transcript_plain(st, blocks, high))
+    for what, (run_steps, many) in shapes.items():
+        plan = tj._plan(tuple(run_steps), dev)
+        n_chal = plan.challenges
+        starts, msgs = words(many, 4), words(many, plan.words)
+        run = lambda: kernels.keccak_transcript(starts, plan, msgs)
+        _, plain_ms = timed_ms(lambda: keccak_t.keccak_transcript_plain(starts, *plan[:2], msgs, n_chal))
         dev_ms = device_ms(run, 20)
-        perms = j + int(high)
-        bnd = keccak_walk_bound(perms, 1, 8 * (32 + 136 * j + (64 if high else 32)))
-        timed[what] = {"absorbs": j, "challenge": high, "kernel_ms": cuda_ms(run, 20), "device_ms": dev_ms,
-                       "plain_ms": plain_ms, **bnd, "bound_share": share(bnd["bound_ms"], dev_ms),
-                       "serial": serial_depth("keccak_f", perms, dev_ms),
-                       "design": keccak_warp_design(perms, dev_ms)}
+        bnd = transcript_bound(run_steps, many)
+        timed[what] = {"blocks": len(run_steps), "challenges": n_chal, "transcripts": many,
+                       "kernel_ms": cuda_ms(run, 20), "device_ms": dev_ms, "plain_ms": plain_ms, **bnd,
+                       "bound_share": share(bnd["bound_ms"], dev_ms),
+                       "serial": serial_depth("keccak_f", bnd["chain_permutations"], dev_ms),
+                       "design": keccak_warp_design(bnd["chain_permutations"], dev_ms)}
     main = timed["ipp_round"]
-    row = {"phase": "kernel", "name": "keccak_transcript", "path": "ipp", "shape": {"absorbs": 2, "challenge": True},
+    epilogue = epilogue_check(dev, epilogue_build)
+    row = {"phase": "kernel", "name": "keccak_transcript", "path": "ipp", "shape": {"steps": "L, R, u"},
            "tolerance": 0, "equal": all(c["equal"] for c in cases) and api["equal"] and api["refuses_136"],
-           "max_abs_err": worst, "checks": {"cases": cases, "absorb_many": api}, "seed": SEED,
+           "max_abs_err": worst, "checks": {"cases": cases, "absorb_many": api, "epilogue": epilogue},
+           "seed": SEED,
            **{k: main[k] for k in ("kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "pipe",
                                    "pipe_bound_ms", "bytes_bound_ms", "dependency_bound_ms", "bound_kind",
                                    "bound_share", "serial", "design")},
@@ -2262,12 +2452,13 @@ def rp_sweep_phase(gpu: str, dev, mp: dict) -> dict:
         pass
     else:
         raise RuntimeError("rp_sweep: verify accepted a tampered m = 1 proof")
+    replay = replay_check(proof, V, 64, tr, dev)
     # interleaved, so the split and the whole see the same host
-    (g, h), scalars, points = proof._verification_terms(bp_gens, pc_gens, tr(), V, 64)
+    (g, h), scalars, points = proof._verification_terms(bp_gens, pc_gens, tr(), V, 64, device=dev)
     whole, terms, msm = [], [], []
     for _ in range(VERIFY_MEDIAN_RUNS):
         whole += host_ms(verify, 1)
-        terms += host_ms(lambda: proof._verification_terms(bp_gens, pc_gens, tr(), V, 64), 1)
+        terms += host_ms(lambda: proof._verification_terms(bp_gens, pc_gens, tr(), V, 64, device=dev), 1)
         msm += host_ms(lambda: backend.gens_msm(bp_gens, scalars + g + h, points, 64, 1, device=dev), 1)
     res = {"phase": "rp_sweep", "digests_equal": True, "verified": True,
            "config1": {"n": 32, "m": 1, "value": v1, "prove_s": single_s, "verify_s": single_verify_s},
@@ -2277,7 +2468,7 @@ def rp_sweep_phase(gpu: str, dev, mp: dict) -> dict:
                          "host_terms_us_median": statistics.median(terms) * 1e3,
                          "msm_us_median": statistics.median(msm) * 1e3,
                          "ms": whole, "host_terms_ms": terms, "msm_ms": msm,
-                         "tampered_t_x+1_rejected": True},
+                         "tampered_t_x+1_rejected": True, "replay": replay},
            "launches": launches, "phase_s": time.perf_counter() - t_phase, "gpu": gpu}
     emit(res)
     return res
@@ -3555,7 +3746,12 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(), "gpu": gpu})
 
     t0 = time.perf_counter()
-    report = kernels.build()
+    proc, epilogue_lib = start_epilogue_build()
+    try:
+        report = kernels.build()
+    finally:
+        log = proc.communicate()[0]
+    epilogue_build = (proc.returncode, log, epilogue_lib)
     ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for name, (_, log) in report.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -3569,7 +3765,7 @@ def main() -> int:
     checks = check_kernels(gpu, dev)
     gn = gens_phase(gpu, dev)
     checks.update(gn["checks"])
-    checks.update(transcript_phase(gpu, dev))
+    checks.update(transcript_phase(gpu, dev, epilogue_build))
     mp = main_path(gpu, dev)
     prove_launch_drop()
     vf = verify_phase(gpu, dev, mp)
@@ -3593,7 +3789,9 @@ def main() -> int:
     summary = kernel_summary(checks, paths, entries)
     emit({"kernels": summary})
     emit({"phase": "profiles", "this": PROFILES, "parent": PARENT_PROFILES,
-          "prove_launch_drop": prove_launch_drop(), "gpu": gpu})
+          "prove_launch_drop": prove_launch_drop(),
+          "prove_launches": {"this": PROFILES["prove"]["device_launches"], "parent": PARENT_PROVE_LAUNCHES},
+          "gpu": gpu})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

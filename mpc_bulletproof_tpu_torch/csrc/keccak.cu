@@ -14,19 +14,22 @@
 //   hash_to_scalar(s) = LE(s || keccak256(s)) mod r
 //
 //   absorb:    state' = keccak256(state || pad_label(label) || msg)
-//   challenge: state' = keccak256(state || pad_label(label)), and beside it
-//              high = keccak256(state') for hash_to_scalar
+//   challenge: state' = keccak256(state || pad_label(label)), and the
+//              challenge u = LE(state' || keccak256(state')) mod r
 //
 // Both chains are serial by definition: each permutation waits for the one
 // before, so their time is a latency chain.  Three entry points:
 // - bp_keccak_chain: a warp a chain (several chains a block).  Each warp
 //   walks `skip` steps without writing, then `count` steps, writing each
 //   state.
-// - bp_keccak_transcript: one warp runs a sequence of transcript blocks
-//   (each absorb, and a challenge's label, is one 136-byte block whose
-//   first 32 bytes are the running state), then optionally keccak256 of
-//   the final state.  The caller builds the blocks (label, message and
-//   padding) on the card; nothing comes back to the host.
+// - bp_keccak_transcript: a block a transcript runs a sequence of absorbs
+//   and challenges (each one 136-byte block whose first 32 bytes are the
+//   running state) from a host-built template of 17 words a block (labels,
+//   host constants, padding) and the transcript's message words, which the
+//   kernel places itself; a second warp hashes and reduces each challenge
+//   off the chain (keccak_transcript_kernel below).  Every byte a verifier
+//   absorbs is in its proof, so a verification's whole replay, or several
+//   transcripts, is one launch.
 // - bp_keccak256_32: one thread a 32-byte message, all in parallel: the
 //   second keccak of hash_to_scalar over every walked state.  Bound by the
 //   ALU pipe: ~2,930 LOP3 and ~1,390 SHF a permutation (32-bit halves of
@@ -54,13 +57,14 @@
 // rotations, so every rotation is a pair of funnel shifts.  A 32-byte
 // message is one block: lanes 0-3 the message, lane 4 the padding byte
 // 0x01, lane 16 the final 0x80.  Chain bytes are read and written as
-// little-endian 64-bit words (the wrapper checks 8-byte alignment);
-// transcript bytes are int64 values in [0, 256), one a byte, as the
-// tensor transcript keeps them.
+// little-endian 64-bit words (the wrapper checks 8-byte alignment), and so
+// are the transcript's states, messages and challenges: every label pads
+// to 32 bytes and every message is whole words (scalars 4, points 8, u64s
+// 1), so a transcript block is whole words.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-typedef unsigned long long u64;
+#include "field.cuh"
 
 __constant__ u64 KECCAK_RC[24] = {
     0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull, 0x8000000080008000ull,
@@ -231,45 +235,187 @@ __global__ void keccak_chain_kernel(const u64 *__restrict__ starts, u64 *__restr
   }
 }
 
-// Eight int64 bytes (each in [0, 256)) as one little-endian word.
-__device__ __forceinline__ u64 load_byte_word(const long long *p) {
-  u64 w = 0;
+// ---- the transcript --------------------------------------------------------
+
+static const int RATE_WORDS = 17;           // a block: 136 bytes
+static const int TRANSCRIPT_THREADS = 128;  // 4 warps stage the run; warps 0 and 1 then work
+static const int SPIN_LIMIT = 1 << 26;      // ~4 s of 64 ns sleeps: a lost hand-over traps, not hangs
+
+// A 256-bit little-endian value mod r: q = v >> 251 (< 32), then v - q r,
+// which lies in (-2^202, 2^251) since r - 2^251 < 2^197, plus r on a
+// borrow (fe_sub's correction).
+__device__ __forceinline__ Fe fr_reduce_u256(const u64 w[4]) {
+  const u32 q = (u32)(w[3] >> 59);
+  u64 p[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) w |= (u64)(p[k] & 0xff) << (8 * k);
-  return w;
+  for (int j = 0; j < 8; j++) p[j] = mad_wide(mlimb<FrConst>(j), q, 0ull);
+  Fe qr;  // q r < 31 r < 2^256: eight limbs
+  qr.v[0] = lo32(p[0]);
+  qr.v[1] = add_cc(lo32(p[1]), hi32(p[0]));
+#pragma unroll
+  for (int j = 2; j < 7; j++) qr.v[j] = addc_cc(lo32(p[j]), hi32(p[j - 1]));
+  qr.v[7] = addc(lo32(p[7]), hi32(p[6]));
+  return fe_sub<FrConst>(fe_from_words(w[0], w[1], w[2], w[3]), qr);
 }
 
-__device__ __forceinline__ void store_byte_word(long long *p, u64 w) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) p[k] = (long long)((w >> (8 * k)) & 0xff);
+// hash_to_scalar's reduction: LE(lo || hi) mod r = lo' + hi' 2^256 mod r
+// with lo', hi' the halves mod r, and hi' 2^256 = mont(hi', R^2) for R = 2^256.
+__device__ __forceinline__ Fe fr_reduce_u512(const u64 lo[4], const u64 hi[4]) {
+  return fe_add<FrConst>(fr_reduce_u256(lo),
+                         fe_mont_mul<FrConst>(fr_reduce_u256(hi), fe_r2<FrConst>()));
 }
 
-static const int TRANSCRIPT_BLOCK_BYTES = 136;  // the rate: 17 words
+// Word t of block i of the staged run (0 for the state's words 0-3 and the
+// capacity's 17-24): the template's word, or'ed with the transcript's
+// message word that the layout puts there (layout row i: the first message
+// word's position in the block, the message's words, their offset in the
+// transcript's message row, the challenge flag).
+__device__ __forceinline__ u64 staged_word(const u64 *tmpl, const long long *layout, const u64 *msg,
+                                           long long i, int t) {
+  if (t < 4 || t >= RATE_WORDS) return 0ull;
+  const long long *row = layout + 4 * i;
+  const long long k = t - row[0];
+  const u64 w = tmpl[RATE_WORDS * i + t];
+  return k >= 0 && k < row[1] ? w | msg[row[2] + k] : w;
+}
 
-// One warp.  state: 32 bytes; blocks: nblocks x 136 bytes, bytes 32-135 of
-// each the label, message and padding (bytes 0-31 are not read: the running
-// state takes their place); out: the final state (32 bytes), then with
-// `high` keccak256 of it (32 more).  The next block's words are loaded
-// before each permutation, so the loads stay off the chain.
-__global__ void keccak_transcript_kernel(const long long *__restrict__ state,
-                                         const long long *__restrict__ blocks, long long nblocks,
-                                         int high, long long *__restrict__ out) {
-  const int t = threadIdx.x;
+// keccak256(s) (s: word t in lane t < 4) and LE(s || keccak256(s)) mod r
+// into column c of `out` (NW x challenges words); every lane of the warp
+// calls it.
+__device__ __forceinline__ void squeeze_challenge(u64 s, const WarpLane &l, int t, u64 *out,
+                                                  long long challenges, long long c) {
+  const u64 h = keccak_f_warp(t < 4 ? s : pad32_word(t), l);
+  u64 lo[4], hi[4];
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    lo[j] = __shfl_sync(FULL_MASK, s, j);
+    hi[j] = __shfl_sync(FULL_MASK, h, j);
+  }
+  if (t == 0) {
+    const Fe u = fr_reduce_u512(lo, hi);
+#pragma unroll
+    for (int j = 0; j < 4; j++) out[j * challenges + c] = (u64)u.v[2 * j] | ((u64)u.v[2 * j + 1] << 32);
+  }
+}
+
+// A transcript's run in shared memory: the template (nblocks x 17), the
+// message row, a state' slot a challenge, the layout (nblocks x 4) and the
+// count of challenges handed over.
+struct StagedRun {
+  u64 *tmpl, *msg, *slot;
+  long long *layout;
+  int *ready;
+};
+
+// Stage the run, every thread of the block loading in turn (coalesced
+// 8-byte loads), and zero the counter; ends in a barrier.
+__device__ __forceinline__ StagedRun stage_run(u64 *smem, const u64 *tmpl, const long long *layout,
+                                               const u64 *msg, long long nblocks, long long msg_words,
+                                               long long challenges) {
+  StagedRun run;
+  run.tmpl = smem;
+  run.msg = run.tmpl + RATE_WORDS * nblocks;
+  run.slot = run.msg + msg_words;
+  run.layout = (long long *)(run.slot + 4 * challenges);
+  run.ready = (int *)(run.layout + 4 * nblocks);
+  const long long n_tmpl = RATE_WORDS * nblocks, n_layout = 4 * nblocks;
+  const long long n_stage = n_tmpl > msg_words ? n_tmpl : msg_words;
+  for (long long k = threadIdx.x; k < n_stage; k += blockDim.x) {
+    if (k < n_tmpl) run.tmpl[k] = tmpl[k];
+    if (k < msg_words) run.msg[k] = msg[k];
+    if (k < n_layout) run.layout[k] = layout[k];
+  }
+  if (threadIdx.x == 0) *run.ready = 0;
+  __syncthreads();
+  return run;
+}
+
+// One block a transcript.  The run is staged in shared memory by all four
+// warps; then warp 0 (the chain) permutes block after block, each block's
+// words read from shared memory one permutation ahead, and at each
+// challenge hands state' to warp 1 through a slot and a counter in shared
+// memory.  Warp 1 (the side warp, on another scheduler) runs
+// keccak256(state') on keccak_f_warp and the reduction mod r (lane 0,
+// csrc/field.cuh) while the chain goes on, so the chain's dependent path is
+// the run's own permutations.  The layout's challenge flags number
+// `challenges` (the wrapper's plan checks it): a missing hand-over traps.
+__global__ void __launch_bounds__(TRANSCRIPT_THREADS)
+keccak_transcript_kernel(const u64 *__restrict__ starts, const u64 *__restrict__ tmpl,
+                         const long long *__restrict__ layout, const u64 *__restrict__ msgs,
+                         long long nblocks, long long msg_words, long long challenges,
+                         u64 *__restrict__ states, u64 *__restrict__ chals) {
+  extern __shared__ u64 smem[];
+  const long long tr = blockIdx.x;
+  // the start state's load in flight with every staging load of a thread:
+  // one memory latency before the chain for a short run
+  u64 a = threadIdx.x < 4 ? starts[4 * tr + threadIdx.x] : 0ull;
+  const StagedRun run = stage_run(smem, tmpl, layout, msgs + msg_words * tr, nblocks, msg_words, challenges);
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  if (warp > 1) return;
   const WarpLane l = warp_lane(t);
-  const bool data = t >= 4 && t < TRANSCRIPT_BLOCK_BYTES / 8;
-  u64 a = t < 4 ? load_byte_word(state + 8 * t) : 0ull;
-  u64 next = nblocks > 0 && data ? load_byte_word(blocks + 8 * t) : 0ull;
+  u64 *out = chals + 4 * challenges * tr;  // this transcript's (NW, challenges) words
+
+  if (warp == 1) {  // the side warp: the challenges in run order
+    for (long long c = 0; c < challenges; ++c) {
+      int spins = 0;
+      while (*(volatile int *)run.ready <= c) {
+        __nanosleep(64);
+        if (++spins > SPIN_LIMIT) __trap();
+      }
+      __threadfence_block();
+      squeeze_challenge(t < 4 ? ((volatile u64 *)run.slot)[4 * c + t] : 0ull, l, t, out, challenges, c);
+    }
+    return;
+  }
+
+  u64 next = nblocks > 0 ? staged_word(run.tmpl, run.layout, run.msg, 0, t) : 0ull;
+  long long c = 0;
   for (long long i = 0; i < nblocks; ++i) {
     const u64 in = t < 4 ? a : next;
-    next = i + 1 < nblocks && data ? load_byte_word(blocks + TRANSCRIPT_BLOCK_BYTES * (i + 1) + 8 * t)
-                                   : 0ull;
+    const bool challenge = run.layout[4 * i + 3] != 0;
+    next = i + 1 < nblocks ? staged_word(run.tmpl, run.layout, run.msg, i + 1, t) : 0ull;
     a = keccak_f_warp(in, l);
+    if (challenge && c < challenges) {
+      if (t < 4) run.slot[4 * c + t] = a;
+      __threadfence_block();
+      __syncwarp();
+      if (t == 0) *(volatile int *)run.ready = (int)(c + 1);
+      ++c;
+    }
   }
-  if (t < 4) store_byte_word(out + 8 * t, a);
-  if (high) {
-    a = keccak_f_warp(t < 4 ? a : pad32_word(t), l);
-    if (t < 4) store_byte_word(out + 32 + 8 * t, a);
+  if (t < 4) states[4 * tr + t] = a;
+}
+
+// Shared memory of a transcript block for a run's sizes: what the kernel
+// stages and the counter.
+static long long transcript_smem(long long nblocks, long long msg_words, long long challenges) {
+  return 8 * (RATE_WORDS * nblocks + msg_words + 4 * challenges + 4 * nblocks) + 16;
+}
+
+static const long long TRANSCRIPT_SMEM_MAX = 232448;  // a block's dynamic shared memory on Hopper
+
+typedef void (*TranscriptKernel)(const u64 *, const u64 *, const long long *, const u64 *, long long,
+                                 long long, long long, u64 *, u64 *);
+
+// Launch `kernel` (keccak_transcript_kernel's signature), a block of
+// TRANSCRIPT_THREADS a transcript, with the run's shared memory.
+static int launch_transcript(TranscriptKernel kernel, const void *starts, const void *tmpl,
+                             const void *layout, const void *msgs, long long transcripts,
+                             long long nblocks, long long msg_words, long long challenges, void *states,
+                             void *chals, void *stream) {
+  if (transcripts < 0 || nblocks < 0 || msg_words < 0 || challenges < 0 || challenges > nblocks)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = transcript_smem(nblocks, msg_words, challenges);
+  if (smem > TRANSCRIPT_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
   }
+  if (transcripts > 0)
+    kernel<<<(unsigned)transcripts, TRANSCRIPT_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+        (const u64 *)starts, (const u64 *)tmpl, (const long long *)layout, (const u64 *)msgs, nblocks,
+        msg_words, challenges, (u64 *)states, (u64 *)chals);
+  return (int)cudaGetLastError();
 }
 
 __global__ void keccak256_32_kernel(const u64 *__restrict__ msgs, u64 *__restrict__ out,
@@ -298,12 +444,12 @@ extern "C" int bp_keccak_chain(const void *starts, void *out, long long chains, 
   return (int)cudaGetLastError();
 }
 
-extern "C" int bp_keccak_transcript(const void *state, const void *blocks, long long nblocks,
-                                    int high, void *out, void *stream) {
-  if (nblocks < 0) return (int)cudaErrorInvalidValue;
-  keccak_transcript_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-      (const long long *)state, (const long long *)blocks, nblocks, high, (long long *)out);
-  return (int)cudaGetLastError();
+extern "C" int bp_keccak_transcript(const void *starts, const void *tmpl, const void *layout,
+                                    const void *msgs, long long transcripts, long long nblocks,
+                                    long long msg_words, long long challenges, void *states,
+                                    void *chals, void *stream) {
+  return launch_transcript(keccak_transcript_kernel, starts, tmpl, layout, msgs, transcripts, nblocks,
+                           msg_words, challenges, states, chals, stream);
 }
 
 extern "C" int bp_keccak256_32(const void *msgs, void *out, long long n, void *stream) {

@@ -21,8 +21,9 @@ tracking with two single MSMs a round and the host transcript, and
 :func:`_create_host_folding`, the classic prover that folds G and H every
 round.
 
-The verifier replays the transcript on the host for the challenges, builds
-the scalar vectors there and checks one MSM (:func:`..ops.backend.dispatch_msm`).
+The verifier replays the transcript in one ``keccak_transcript`` launch
+(:func:`..transcript.replay`) for the challenges, builds the scalar
+vectors on the host and checks one MSM (:func:`..ops.backend.dispatch_msm`).
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from ..constants import FIELD_BITS, R, SCALAR_BYTES, STARK_POINT_BYTES
 from ..ops.backend import _DEVICE_MIN, dispatch_msm
 from ..ops.curve import StarkPoint
 from ..ops.field import Scalar, inner_product
-from ..transcript import HashChainTranscript
+from ..transcript import (HashChainTranscript, innerproduct_domain_steps, replay,
+                          validated_point_message)
 from ..utils.device import resolve_device
 from ..utils.errors import FormatError, VerificationError
 
@@ -78,39 +80,55 @@ class InnerProductProof:
         return _create_device_fused(transcript, Q, G_factors, H_factors, G_vec, H_vec,
                                     a_vec, b_vec, dev)
 
-    def replay_challenges(self, n: int, transcript: HashChainTranscript):
-        """Replay the transcript's absorbs; returns the round challenges
-        ``u_j`` and their inverses."""
+    def transcript_steps(self, n: int) -> list:
+        """The verifier's transcript steps for width ``n``: the domain
+        separator, then each round's L, R and challenge u.  Raises
+        :class:`VerificationError` for a size or length the proof cannot
+        have, ``ProofError`` for an identity L or R."""
         lg_n = len(self.L_vec)
         if lg_n >= 32:
             raise VerificationError("proof too large")
         if n != (1 << lg_n):
             raise VerificationError("length mismatch with proof")
-        transcript.innerproduct_domain_sep(n)
-        challenges = []
+        steps = innerproduct_domain_steps(n)
         for L, R_pt in zip(self.L_vec, self.R_vec):
-            transcript.validate_and_append_point(b"L", L)
-            transcript.validate_and_append_point(b"R", R_pt)
-            challenges.append(transcript.challenge_scalar(b"u"))
-        return challenges, Scalar.batch_inverse(challenges)
+            steps += [(b"L", validated_point_message(L)), (b"R", validated_point_message(R_pt)), (b"u", None)]
+        return steps
+
+    def replay_challenges(self, n: int, transcript: HashChainTranscript, device=None):
+        """Replay the transcript's absorbs; returns the round challenges
+        ``u_j`` as ints in ``[0, r)``.  On ``device`` the replay is one
+        :func:`..transcript.replay` launch; with None it runs on the host
+        transcript (the R1CS verifier's route, whose transcript is host-side)."""
+        steps = self.transcript_steps(n)
+        if device is not None:
+            return replay([transcript], [steps], device)[0]
+        us = []
+        for label, msg in steps:
+            if msg is None:
+                us.append(int(transcript.challenge_scalar(label)))
+            else:
+                transcript.append_message(label, msg)
+        return us
 
     def verification_scalars(self, n: int, transcript: HashChainTranscript):
-        """``(u_j^2, u_j^-2, s)`` for the parent protocol's single MSM:
-        ``s_0 = prod_j u_j^-1``, ``s_i = s_(i - 2^k) u_(lg n - k)^2`` with
-        ``k = floor(lg i)``."""
-        return tuple([Scalar(x) for x in v] for v in self._verification_ints(n, transcript))
+        """``(u_j^2, u_j^-2, s)`` for the parent protocol's single MSM, the
+        challenges replayed on the host transcript: ``s_0 = prod_j
+        u_j^-1``, ``s_i = s_(i - 2^k) u_(lg n - k)^2`` with ``k = floor(lg i)``."""
+        challenges = self.replay_challenges(n, transcript)
+        return tuple([Scalar(x) for x in v] for v in self.scalars_from_challenges(challenges))
 
-    def _verification_ints(self, n: int, transcript: HashChainTranscript):
-        """:meth:`verification_scalars` as Python ints in ``[0, r)``; ``s``
-        grows by doubling, entries ``2^k .. 2^(k+1) - 1`` the first ``2^k``
-        times ``u_(lg n - k)^2``."""
-        challenges, challenges_inv = self.replay_challenges(n, transcript)
-        lg_n = len(self.L_vec)
+    def scalars_from_challenges(self, challenges: list[int]):
+        """:meth:`verification_scalars` from the round challenges, as Python
+        ints in ``[0, r)``; ``s`` grows by doubling, entries ``2^k .. 2^(k+1)
+        - 1`` the first ``2^k`` times ``u_(lg n - k)^2``."""
+        challenges_inv = [int(x) for x in Scalar.batch_inverse([Scalar(u) for u in challenges])]
+        lg_n = len(challenges)
         allinv = 1
         for ci in challenges_inv:
-            allinv = allinv * int(ci) % R
-        u_sq = [int(u) * int(u) % R for u in challenges]
-        u_inv_sq = [int(u) * int(u) % R for u in challenges_inv]
+            allinv = allinv * ci % R
+        u_sq = [u * u % R for u in challenges]
+        u_inv_sq = [u * u % R for u in challenges_inv]
         s = [allinv]
         for k in range(lg_n):
             u = u_sq[(lg_n - 1) - k]
@@ -124,9 +142,11 @@ class InnerProductProof:
         - sum_j (u_j^2 L_j + u_j^-2 R_j)`` by one MSM on ``device`` (the card
         unless the caller asks for the CPU).  ``G`` and ``H`` are host point
         lists or ``(3, NW, n)`` point tensors; with a tensor the MSM runs
-        over the points concatenated on its device.  The scalars are
-        computed on the host.  Raises :class:`VerificationError`."""
-        u_sq, u_inv_sq, s = self._verification_ints(n, transcript)
+        over the points concatenated on its device.  The transcript replay
+        is one launch on ``device``; the scalars are computed on the host.
+        Raises :class:`VerificationError`."""
+        challenges = self.replay_challenges(n, transcript, resolve_device(device))
+        u_sq, u_inv_sq, s = self.scalars_from_challenges(challenges)
         a, b = int(self.a), int(self.b)
         g_a_s = [a * s_i % R * int(g_i) % R for g_i, s_i in zip(G_factors, s)]
         h_b_s = [b * s_inv % R * int(h_i) % R for h_i, s_inv in zip(H_factors, reversed(s))]
@@ -381,19 +401,20 @@ def _create_device_fused(transcript, Q, G_factors, H_factors, G, H, a, b, device
     the host transcript takes the device's final state."""
     from ..ops import curve_t as ct
     from ..ops import packio
+    from ..ops import transcript_t as tj
     from ..ops.limb import NW, words_to_ints
 
     n = _width(a)
     sc = lambda xs: _device_scalars(xs, device)
     table = torch.cat([_device_points(G, device), _device_points(H, device),
                        _device_points([Q], device), ct.identity((1,), device)], dim=-1).contiguous()
-    state = torch.as_tensor(np.frombuffer(transcript.state, np.uint8).astype(np.int64), device=device)
+    state = torch.as_tensor(tj.state_words(transcript.state), device=device)
     out = packio.pack_device(list(fused_ipp_body(n, device)(
         state, sc(a), sc(b), sc(G_factors), sc(H_factors), table)))
     rounds = (n - 1).bit_length()
-    shapes = [(32,), (NW,), (NW,), (rounds, NW, 2), (rounds, NW, 2), (rounds, 2)]
+    shapes = [(4,), (NW,), (NW,), (rounds, NW, 2), (rounds, NW, 2), (rounds, 2)]
     state_np, a_fin, b_fin, xs, ys, iids = packio.unpack_np(out.cpu().numpy(), shapes)
-    transcript.state = bytes(int(v) for v in state_np)
+    transcript.state = tj.state_bytes(state_np)
     L_vec, R_vec = [], []
     for rnd in range(rounds):
         xv, yv = words_to_ints(xs[rnd]), words_to_ints(ys[rnd])
@@ -412,6 +433,10 @@ def _ipp_round_indices(n: int, cur: int):
     idxL = np.append(np.where(hi, i, n + i), 2 * n)
     idxR = np.append(np.where(hi, n + i, i), 2 * n)
     return idxL, idxR
+
+
+# one fused round's transcript run: L and R (8 words each), then u
+_ROUND_STEPS = ((b"L", 8), (b"R", 8), (b"u", None))
 
 
 def fused_ipp_body(n: int, device, table_gens: bool = False):
@@ -483,7 +508,7 @@ def fused_ipp_body(n: int, device, table_gens: bool = False):
             LR = msm_mod._msm_multi_table_impl([(sL, recL), (sR, recR)], table, c, bits)
 
             x, y, iid = tj.lazy_points_to_affine(LR)
-            state, u = tj.absorb_many(state, [b"L", b"R"], tj.points_transcript_bytes(x, y, iid), b"u")
+            state, u = tj.absorb_many(state, _ROUND_STEPS, tj.points_words(x, y, iid))
             u_inv = kernels.mod_pow_static(u.contiguous(), R - 2, FR)
             xs.append(x), ys.append(y), iids.append(iid)
 

@@ -4,7 +4,8 @@ entry points, which run the whole protocol on the card
 (:mod:`.party`, :mod:`.dealer`, :mod:`.messages`) for an aggregation whose
 m values are held by m parties and assembled by a dealer.
 
-Verification replays the transcript and derives the scalars on the host
+Verification replays the whole transcript in one ``keccak_transcript``
+launch (a batch's transcripts in one), derives the scalars on the host
 (:meth:`RangeProof._verification_terms`), then checks one MSM over
 ``[A, S, T_1, T_2, V.., B, B~, L.., R..] + G + H`` on the card
 (:func:`...ops.backend.gens_msm`), with G and H from the device
@@ -25,7 +26,9 @@ from ...generators import BulletproofGens, PedersenGens
 from ...ops import backend
 from ...ops.curve import StarkPoint
 from ...ops.field import Scalar, sum_of_powers
-from ...transcript import HashChainTranscript
+from ...ops.curve import stark_point_to_transcript_bytes
+from ...transcript import (HashChainTranscript, rangeproof_domain_steps, replay, scalar_message,
+                           validated_point_message)
 from ...utils.device import resolve_device
 from ...utils.errors import FormatError, VerificationError
 from ..inner_product import InnerProductProof
@@ -108,7 +111,7 @@ class RangeProof:
         the caller asks for the CPU).  Raises :class:`VerificationError`."""
         dev = resolve_device(device)
         (g_scalars, h_scalars), scalars, points = self._verification_terms(
-            bp_gens, pc_gens, transcript, value_commitments, n)
+            bp_gens, pc_gens, transcript, value_commitments, n, device=dev)
         mega = backend.gens_msm(bp_gens, scalars + g_scalars + h_scalars, points, n,
                                 len(value_commitments), device=dev)
         if not mega.is_identity():
@@ -121,45 +124,59 @@ class RangeProof:
         transcript: HashChainTranscript,
         value_commitments: list[StarkPoint],
         n: int,
+        *,
+        device,
     ):
-        """The verification MSM's scalars, on the host.
+        """The verification MSM's scalars: the transcript replayed in one
+        launch on ``device`` (:func:`...transcript.replay`), the rest on the
+        host.  The transcript ends where the host route would leave it.
 
         Returns ``((g_scalars, h_scalars), scalars, points)``: ints mod r,
         the g/h lists aligned with the aggregated generator vectors (so
         :meth:`verify_batch` can merge them across proofs), ``scalars`` and
         ``points`` in the order ``[A, S, T_1, T_2, V.., B, B~, L.., R..]``."""
-        m = len(value_commitments)
+        return RangeProof._replayed_terms([self], bp_gens, pc_gens, [transcript], [value_commitments], n,
+                                          resolve_device(device))[0]
+
+    @staticmethod
+    def _replayed_terms(proofs, bp_gens, pc_gens, transcripts, commitment_lists, n: int, device) -> list:
+        """:meth:`_verification_terms` of each proof, every transcript
+        replayed in one launch."""
+        m = len(commitment_lists[0])
         if n <= 0 or (n & (n - 1)) or bp_gens.gens_capacity < n:
             raise VerificationError("invalid bitsize")
         if m <= 0 or (m & (m - 1)) or bp_gens.party_capacity < m:
             raise VerificationError("invalid aggregation size")
+        runs = [proof._transcript_steps(comms, n) for proof, comms in zip(proofs, commitment_lists)]
+        return [proof._terms(challenges, pc_gens, comms, n)
+                for proof, comms, challenges in zip(proofs, commitment_lists,
+                                                    replay(transcripts, runs, device))]
 
-        t = transcript
-        t.rangeproof_domain_sep(n, m)
-        for V in value_commitments:
-            t.append_point(b"V", V)
-        t.validate_and_append_point(b"A", self.A)
-        t.validate_and_append_point(b"S", self.S)
-        y = t.challenge_scalar(b"y")
-        z = t.challenge_scalar(b"z")
-        t.validate_and_append_point(b"T_1", self.T_1)
-        t.validate_and_append_point(b"T_2", self.T_2)
-        x = t.challenge_scalar(b"x")
-        t.append_scalar(b"t_x", self.t_x)
-        t.append_scalar(b"t_x_blinding", self.t_x_blinding)
-        t.append_scalar(b"e_blinding", self.e_blinding)
-        w = t.challenge_scalar(b"w")
+    def _transcript_steps(self, value_commitments: list[StarkPoint], n: int) -> list:
+        """The verifier's whole transcript as steps: the domain separator,
+        V.., A, S, y, z, T_1, T_2, x, the three scalars, w, the IPP's, c."""
+        m = len(value_commitments)
+        point = validated_point_message
+        return (rangeproof_domain_steps(n, m)
+                + [(b"V", stark_point_to_transcript_bytes(V)) for V in value_commitments]
+                + [(b"A", point(self.A)), (b"S", point(self.S)), (b"y", None), (b"z", None),
+                   (b"T_1", point(self.T_1)), (b"T_2", point(self.T_2)), (b"x", None),
+                   (b"t_x", scalar_message(self.t_x)), (b"t_x_blinding", scalar_message(self.t_x_blinding)),
+                   (b"e_blinding", scalar_message(self.e_blinding)), (b"w", None)]
+                + self.ipp_proof.transcript_steps(n * m) + [(b"c", None)])
 
+    def _terms(self, challenges: list[int], pc_gens: PedersenGens, value_commitments: list[StarkPoint], n: int):
+        """The MSM's terms from the replayed challenges ``y, z, x, w, u.., c``."""
+        m = len(value_commitments)
         MOD = Scalar.MODULUS
         nm = n * m
         a, b = int(self.ipp_proof.a), int(self.ipp_proof.b)
-        yv, zv, xv, wv = int(y), int(z), int(x), int(w)
+        yv, zv, xv, wv = challenges[:4]
+        c = challenges[-1]  # weight of the second equation
         t_x, t_x_blinding, e_blinding = int(self.t_x), int(self.t_x_blinding), int(self.e_blinding)
         zz = zv * zv % MOD
 
-        u_sq, u_inv_sq, s_sc = self.ipp_proof.verification_scalars(nm, t)
-        s = [int(v) for v in s_sc]
-        c = int(t.challenge_scalar(b"c"))  # weight of the second equation
+        u_sq, u_inv_sq, s = self.ipp_proof.scalars_from_challenges(challenges[4:-1])
 
         y_inv = pow(yv, -1, MOD)
         y_inv_pows = [1] * nm
@@ -178,8 +195,8 @@ class RangeProof:
                      for i in range(nm)]
 
         # delta(y, z) = (z - z^2) <1, y^nm> - sum_j z^(j + 3) <1, 2^n>
-        sum_y = int(sum_of_powers(y, nm))
-        sum_z = int(sum_of_powers(z, m))
+        sum_y = int(sum_of_powers(Scalar(yv), nm))
+        sum_z = int(sum_of_powers(Scalar(zv), m))
         delta = ((zv - zz) * sum_y - zv * zz % MOD * sum_z % MOD * ((1 << n) - 1)) % MOD
         basepoint_scalar = (wv * (t_x - a * b) + c * (delta - t_x)) % MOD
         value_commitment_scalars = []
@@ -189,8 +206,7 @@ class RangeProof:
             exp_z = exp_z * zv % MOD
 
         scalars = ([1, xv, c * xv % MOD, c * xv % MOD * xv % MOD] + value_commitment_scalars
-                   + [basepoint_scalar, (-e_blinding - c * t_x_blinding) % MOD]
-                   + [int(u) for u in u_sq] + [int(u) for u in u_inv_sq])
+                   + [basepoint_scalar, (-e_blinding - c * t_x_blinding) % MOD] + u_sq + u_inv_sq)
         points = ([self.A, self.S, self.T_1, self.T_2] + list(value_commitments)
                   + [pc_gens.B, pc_gens.B_blinding] + self.ipp_proof.L_vec + self.ipp_proof.R_vec)
         return (g_scalars, h_scalars), scalars, points
@@ -238,9 +254,8 @@ class RangeProof:
         uniq_scalars: list[int] = []
         uniq_points: list[StarkPoint] = []
         b_idx = 4 + m                     # [A, S, T1, T2, V.., B, B~, L.., R..]
-        for proof, transcript, comms in zip(proofs, transcripts, commitment_lists):
-            (g_sc, h_sc), scalars, points = proof._verification_terms(
-                bp_gens, pc_gens, transcript, comms, n)
+        terms = RangeProof._replayed_terms(proofs, bp_gens, pc_gens, transcripts, commitment_lists, n, dev)
+        for (g_sc, h_sc), scalars, points in terms:
             rho = int.from_bytes(secrets.token_bytes(32), "big") % MOD
             for i in range(nm):
                 g_acc[i] = (g_acc[i] + rho * g_sc[i]) % MOD

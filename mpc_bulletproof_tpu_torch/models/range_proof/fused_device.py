@@ -7,8 +7,9 @@ of tensor operations on ``device``, with the hash chain there too
 finished proof is copied out once.
 
 Byte for byte the JAX package's proof, given the same blinding stream: the
-transcript absorb order is the dealer's (V_0..V_{m-1}, A, S | y, z | T_1,
-T_2 | x | t_x, t_x_blinding, e_blinding | w | IPP rounds), and the
+transcript absorb order is the dealer's (V_0..V_{m-1}, A, S, y, z | T_1,
+T_2, x | t_x, t_x_blinding, e_blinding, w, the IPP's domain | each IPP
+round's L, R, u; one keccak launch a run), and the
 aggregated values are the sums of the per-party shares, computed as global
 vector operations on the concatenated vectors.
 """
@@ -75,12 +76,13 @@ def _program(n: int, m: int, device):
     add = lambda a, b: limb.mod_add(a, b, FR)
     sub = lambda a, b: limb.mod_sub(a, b, FR)
 
-    def absorb_points(state, labels, pts, challenge=None):
+    def absorb_points(state, labels, pts, challenges=()):
         """Affine-convert a ``(3, NW, k)`` batch, absorb with per-point
-        labels, then squeeze ``challenge`` if given: one keccak launch.
-        Returns ``(state, u, (x, y, is_id))``."""
+        labels, then squeeze ``challenges``: one keccak launch.  Returns
+        ``(state, u, (x, y, is_id))``."""
         x, y, iid = tj.lazy_points_to_affine(pts)
-        state, u = tj.absorb_many(state, labels, tj.points_transcript_bytes(x, y, iid), challenge)
+        steps = [(label, 8) for label in labels] + [(label, None) for label in challenges]
+        state, u = tj.absorb_many(state, steps, tj.points_words(x, y, iid))
         return state, u, (x, y, iid)
 
     def run(state, bits, v, gamma, alpha_sum, rho_sum, sL, sR, t1b_sum, t2b_sum,
@@ -110,10 +112,10 @@ def _program(n: int, m: int, device):
         S_msm = msm_mod._msm_multi_table_impl([(s4_S, rec_S)], split_table, msm_mod.SPLIT_WINDOW)
         S_pt = kernels.point_add(S_msm, S_blind.contiguous())
 
-        state, _, (Vx, Vy, Vid) = absorb_points(state, [b"V"] * m, V_pts)
-        state, y_ch, (ASx, ASy, ASid) = absorb_points(state, [b"A", b"S"],
-                                                      torch.cat([A_pt, S_pt], dim=-1), b"y")
-        state, z_ch = tj.challenge_scalar(state, b"z")
+        state, yz, (Vx, Vy, Vid) = absorb_points(state, [b"V"] * m + [b"A", b"S"],
+                                                 torch.cat([V_pts, A_pt, S_pt], dim=-1), (b"y", b"z"))
+        (Vx, ASx), (Vy, ASy), (Vid, ASid) = (t.split([m, 2], dim=-1) for t in (Vx, Vy, Vid))
+        y_ch, z_ch = yz[:, :1], yz[:, 1:]
 
         # ---- l/r polynomial coefficients over the nm lanes ---------------
         y_pows = limb.powers(y_ch[:, 0], nm, FR)
@@ -139,16 +141,18 @@ def _program(n: int, m: int, device):
         T_pts = msm_mod.fixed_commit(
             fb_table, torch.zeros(2, dtype=torch.int64, device=device), torch.cat([t1, t2], dim=-1),
             torch.full((2,), FB_STRIDE, device=device), torch.cat([t1b_sum, t2b_sum], dim=-1))
-        state, x_ch, (Tx, Ty, Tid) = absorb_points(state, [b"T_1", b"T_2"], T_pts, b"x")
+        state, x_ch, (Tx, Ty, Tid) = absorb_points(state, [b"T_1", b"T_2"], T_pts, (b"x",))
 
         # ---- proof shares (aggregated) -------------------------------------
         t_x = add(t0, mul(x_ch, add(t1, mul(x_ch, t2))))
         zgamma = inner(z_pows_m, gamma)
         t_x_blinding = add(mul(zz, zgamma), mul(x_ch, add(t1b_sum, mul(x_ch, t2b_sum))))
         e_blinding = add(alpha_sum, mul(x_ch, rho_sum))
+        # the proof scalars, w and the IPP's domain separator: one run
         state, w_ch = tj.absorb_many(
-            state, [b"t_x", b"t_x_blinding", b"e_blinding"],
-            tj.felt_bytes_le(torch.cat([t_x, t_x_blinding, e_blinding], dim=-1)), b"w")
+            state, [(b"t_x", 4), (b"t_x_blinding", 4), (b"e_blinding", 4), (b"w", None),
+                    (b"dom-sep", pad_label(b"ipp v1")), (b"n", nm.to_bytes(8, "little"))],
+            tj.scalars_words(torch.cat([t_x, t_x_blinding, e_blinding], dim=-1)))
         # Q = w B never exists as a point: the IPP's Q term rides base B of
         # the split table with scalar c w
 
@@ -158,7 +162,6 @@ def _program(n: int, m: int, device):
         y_inv = kernels.mod_pow_static(y_ch.contiguous(), R - 2, FR)
         wH = limb.powers(y_inv[:, 0], nm, FR)
         wG = limb.from_const(1, (nm,), device)
-        state, _ = tj.absorb_many(state, [b"dom-sep", b"n"], [pad_label(b"ipp v1"), nm.to_bytes(8, "little")])
         state, a_fin, b_fin, Lx, Ly, Lid = ipp_run(state, l_vec, r_vec, wG, wH, split_table, w_ch)
 
         return packio.pack_device([
@@ -188,6 +191,7 @@ def prove_multiple_device(
     t1, t2 blindings), so an injected stream reproduces the host's proof."""
     from ...ops import curve_t as ct
     from ...ops import packio
+    from ...ops import transcript_t as tj
     from ...ops.limb import NW, words_to_ints
     from .. import range_proof
 
@@ -233,7 +237,7 @@ def prove_multiple_device(
 
     sc = lambda xs: torch.as_tensor(ct.scalars_from_host(xs), device=device)
     sum_s = lambda xs: Scalar(sum(int(x) for x in xs))
-    state = torch.as_tensor(np.frombuffer(transcript.state, np.uint8).astype(np.int64), device=device)
+    state = torch.as_tensor(tj.state_words(transcript.state), device=device)
     out = _program(n, m, device)(
         state, torch.as_tensor(bits, device=device), sc([Scalar(int(v)) for v in values]),
         sc(blindings), sc([sum_s(a_blind)]), sc([sum_s(s_blind)]), sc(sL_all), sc(sR_all),
@@ -242,7 +246,7 @@ def prove_multiple_device(
 
     rounds = (nm - 1).bit_length()
     shapes = [
-        (32,),
+        (4,),
         (NW, m), (NW, m), (m,),          # V
         (NW, 2), (NW, 2), (2,),          # A, S
         (NW, 2), (NW, 2), (2,),          # T_1, T_2
@@ -252,7 +256,7 @@ def prove_multiple_device(
     ]
     (state_np, Vx, Vy, Vid, ASx, ASy, ASid, Tx, Ty, Tid,
      t_x, t_xb, e_b, a_fin, b_fin, Lx, Ly, Lid) = packio.unpack_np(out.cpu().numpy(), shapes)
-    transcript.state = bytes(int(v) for v in state_np)
+    transcript.state = tj.state_bytes(state_np)
 
     def pts_of(x, y, iid):
         xs, ys = words_to_ints(x), words_to_ints(y)

@@ -4,14 +4,12 @@ and the plain versions of the generator chains' keccak kernels.
 Mirrors :mod:`.keccak` bit for bit: keccak-f[1600] and keccak-256 with the
 original padding ``0x01 .. 0x80``.  A state is a ``(25, *batch)`` int64
 tensor of 64-bit lanes (index ``x + 5 y``); int64 is signed, so every right
-shift in a rotation is masked to the bits it brings in.  Transcript
-messages are ``(len,)`` int64 byte tensors of a length known to the
-caller; every transcript absorb of the protocol fits one block (at most
-135 bytes), so only that path exists.  :func:`keccak_chain_plain` and
-:func:`keccak256_32_plain` take ``(k, 32)`` uint8 byte rows, and
-:func:`keccak_transcript_plain` a run of ``(j, 136)`` int64 transcript
-blocks: the plain versions of ``csrc/keccak.cu`` (wrappers in
-:mod:`.kernels`).
+shift in a rotation is masked to the bits it brings in.  Every transcript
+absorb of the protocol fits one block (at most 135 bytes), so only that
+path exists.  :func:`keccak_chain_plain` and :func:`keccak256_32_plain`
+take ``(k, 32)`` uint8 byte rows, and :func:`keccak_transcript_plain` runs
+of transcript blocks as 64-bit words: the plain versions of
+``csrc/keccak.cu`` (wrappers in :mod:`.kernels`).
 """
 
 from __future__ import annotations
@@ -20,7 +18,7 @@ import numpy as np
 import torch
 
 from .keccak import _RC, _ROT
-from .limb import _const
+from .limb import FR, _const, reduce_512, to_pieces
 
 RATE = 136  # keccak-256 rate in bytes (17 lanes)
 
@@ -95,16 +93,39 @@ def keccak256(data: torch.Tensor, length: int) -> torch.Tensor:
     return _hash_block(block)
 
 
-def keccak_transcript_plain(state: torch.Tensor, blocks: torch.Tensor, high: bool) -> torch.Tensor:
-    """A run of transcript blocks: ``state <- keccak256(state || block[32:])``
-    for each padded ``(136,)`` row of ``blocks`` (``(j, 136)`` int64 bytes,
-    label, message and padding from byte 32 on), the final ``(32,)`` state;
-    with ``high`` that state followed by its keccak256, ``(64,)``."""
-    for block in blocks:
-        state = _hash_block(torch.cat([state, block[32:]]))
-    if not high:
-        return state.clone()
-    return torch.cat([state, keccak256(state, 32)])
+def keccak_transcript_plain(starts: torch.Tensor, template: torch.Tensor, layout: torch.Tensor,
+                            msgs: torch.Tensor, challenges: int):
+    """Runs of transcript blocks, the plain version of ``bp_keccak_transcript``.
+
+    ``starts`` ``(T, 4)`` words, one state a transcript; ``template``
+    ``(J, 17)`` words, block ``i``'s label, host constants and padding
+    (words 0-3 are not read: the running state takes their place);
+    ``layout`` ``(J, 4)``, block ``i``'s first message word's position,
+    its message's words, their offset in a message row, and 1 for a
+    challenge; ``msgs`` ``(T, W)`` words, one row a transcript.  Every
+    block is ``state <- keccak256(block)``; at a challenge the new state
+    ``s`` also gives ``LE(s || keccak256(s)) mod r``.  Returns the final
+    states ``(T, 4)`` and the ``challenges`` challenges ``(T, NW, C)`` in
+    run order, canonical words."""
+    state = starts.T                                           # (4, T)
+    squeezed = []
+    for i, (pos, n, off, chal) in enumerate(layout.tolist()):
+        a = state.new_zeros((25, state.shape[1]))
+        a[:4] = state
+        a[4:RATE // 8] = template[i, 4:, None]
+        a[pos : pos + n] |= msgs[:, off : off + n].T
+        state = keccak_f1600(a)[:4]
+        if chal:
+            squeezed.append(state)
+    if len(squeezed) != challenges:
+        raise ValueError(f"keccak_transcript: the layout has {len(squeezed)} challenges, not {challenges}")
+    u = starts.new_zeros((starts.shape[0], 4, 0))
+    if squeezed:
+        s = torch.stack(squeezed, dim=-1).reshape(4, -1)       # (4, T C)
+        words = torch.cat([s, _hash32_lanes(s)])               # (8, T C): s || keccak256(s)
+        u = reduce_512(torch.cat([to_pieces(words[:4]), to_pieces(words[4:])]), FR)
+        u = u.reshape(4, starts.shape[0], challenges).permute(1, 0, 2)
+    return state.T.contiguous(), u.contiguous()
 
 
 # -- the generator chains: 32-byte messages in (k, 32) uint8 rows ------------

@@ -27,8 +27,9 @@ probes of the JAX package's benches.  The last three, ``keccak_chain``,
 Pallas kernel: the first two walk the generator chains, which the JAX
 package walks with its native engine's keccak on the host
 (:mod:`..generators`); the third runs the tensor transcript's hash chain
-(:mod:`.transcript_t`), which the JAX package writes in jnp
-(``ops/keccak_jax.py``) inside its fused prover's one program.
+and reduces its challenges mod r (:mod:`.transcript_t`), which the JAX
+package writes in jnp (``ops/keccak_jax.py``, ``ops/transcript_jax.py``)
+inside its fused prover's one program.
 
 The provers and the verifiers launch ``point_add``, ``point_scan_steps_inner``,
 ``point_horner_multi``, ``point_reduce`` and ``mod_pow_static``; the
@@ -36,9 +37,10 @@ collaborative prover's device share plane (:mod:`..parallel.device_shares`)
 launches the vector ops and the three share-plane entries;
 ``point_scan_steps`` and the probes serve callers of the library (the JAX
 package calls them only from its benches); ``BulletproofGens`` launches
-``keccak_chain`` and ``keccak256_32``; every absorb and challenge of the
-tensor transcript (the fused range prover, the fused IPP rounds) launches
-``keccak_transcript``.
+``keccak_chain`` and ``keccak256_32``; every run of absorbs and
+challenges of the tensor transcript (the fused range prover, the fused IPP
+rounds) and every range-proof or IPP verification's replay (a batch's in
+one) launches ``keccak_transcript``.
 
 Every wrapper checks dtype, shape and contiguity the same way for every
 device.  For a tensor on the CPU it runs the plain PyTorch version beside
@@ -62,6 +64,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -95,7 +98,7 @@ KERNELS = {
     "probe_accum": ("probes.cu", "bp_probe_accum", [_P, _P, _P, _LL, _I, _I, _P]),
     "keccak_chain": ("keccak.cu", "bp_keccak_chain", [_P, _P, _LL, _LL, _LL, _P]),
     "keccak256_32": ("keccak.cu", "bp_keccak256_32", [_P, _P, _LL, _P]),
-    "keccak_transcript": ("keccak.cu", "bp_keccak_transcript", [_P, _P, _LL, _I, _P, _P]),
+    "keccak_transcript": ("keccak.cu", "bp_keccak_transcript", [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _P, _P, _P]),
 }
 
 # Launches per kernel since the last reset_launches(); only a launch of the
@@ -729,21 +732,81 @@ def keccak256_32(msgs: torch.Tensor) -> torch.Tensor:
 # keccak_transcript: the Fiat-Shamir transcript's hash chain
 # ---------------------------------------------------------------------------
 
-def keccak_transcript(state: torch.Tensor, blocks: torch.Tensor, high: bool) -> torch.Tensor:
-    """Run the ``(j, 136)`` transcript blocks from the ``(32,)`` ``state``:
-    ``state <- keccak256(state || block[32:])`` for each row (label,
-    message and padding from byte 32 on; bytes 0-31 are not read), one
-    warp, one launch.  Returns the final ``(32,)`` state, or with ``high``
-    that state followed by its keccak256, ``(64,)`` (a challenge's
-    ``hash_to_scalar`` input).  Bytes are int64 values in [0, 256)."""
-    dev = _check(state, "keccak_transcript state", shape=(32,))
-    if _check(blocks, "keccak_transcript blocks") != dev or blocks.device != state.device:
-        raise ValueError("keccak_transcript: state and blocks must be on the same device")
-    if blocks.dim() != 2 or blocks.shape[1] != RATE:
-        raise ValueError(f"keccak_transcript blocks: expected (j, {RATE}) rows, got {tuple(blocks.shape)}")
+# A block's dynamic shared memory on Hopper, and what a transcript block
+# stages (csrc/keccak.cu transcript_smem): the run must fit.
+TRANSCRIPT_SMEM_MAX = 232448
+
+
+def transcript_smem(blocks: int, msg_words: int, challenges: int) -> int:
+    return 8 * (RATE // 8 * blocks + msg_words + 4 * challenges + 4 * blocks) + 16
+
+
+class TranscriptPlan(NamedTuple):
+    """A run of transcript blocks, checked on the host by
+    :func:`transcript_plan`: ``template`` ``(J, 17)`` words (labels, host
+    constants and padding; words 0-3 are not read), ``layout`` ``(J, 4)``
+    (block ``i``'s first message word's position in the block, its
+    message's words, their offset in a message row, and 1 for a
+    challenge), both on the run's device; the message words a transcript
+    and the challenges the layout flags."""
+    template: torch.Tensor
+    layout: torch.Tensor
+    words: int
+    challenges: int
+
+
+def transcript_plan(template, layout, device) -> TranscriptPlan:
+    """Check a run's host ``template`` and ``layout`` (int64 arrays, as in
+    :class:`TranscriptPlan`) and put them on ``device``.  Every block's
+    message words lie in words 4-16 of the block and in the message row,
+    every flag is 0 or 1, a challenge takes no message, and the run fits a
+    block's shared memory; so the kernel and its plain version take the
+    same runs and read nothing outside them.  Raises ``ValueError``."""
+    template = torch.as_tensor(template, dtype=torch.int64)
+    layout = torch.as_tensor(layout, dtype=torch.int64)
+    if template.dim() != 2 or template.shape[1] != RATE // 8:
+        raise ValueError(f"keccak_transcript template: expected (J, {RATE // 8}) words, got {tuple(template.shape)}")
+    if tuple(layout.shape) != (template.shape[0], 4):
+        raise ValueError(f"keccak_transcript layout: expected ({template.shape[0]}, 4), got {tuple(layout.shape)}")
+    pos, n, off, flag = layout.T
+    if not bool(((flag == 0) | (flag == 1)).all()):
+        raise ValueError("keccak_transcript layout: a challenge flag is 0 or 1")
+    if bool((n < 0).any()) or bool(((flag == 1) & (n != 0)).any()):
+        raise ValueError("keccak_transcript layout: message words >= 0, and none at a challenge")
+    has = n > 0
+    if bool((has & ((pos < 4) | (pos + n > RATE // 8) | (off < 0))).any()):
+        raise ValueError("keccak_transcript layout: a message outside words 4-16 of its block")
+    words, challenges = int((off + n)[has].max()) if bool(has.any()) else 0, int(flag.sum())
+    if transcript_smem(template.shape[0], words, challenges) > TRANSCRIPT_SMEM_MAX:
+        raise ValueError("keccak_transcript: the run does not fit a block's shared memory")
+    return TranscriptPlan(template.to(device).contiguous(), layout.to(device).contiguous(), words, challenges)
+
+
+def keccak_transcript(starts: torch.Tensor, plan: TranscriptPlan, msgs: torch.Tensor):
+    """Run the blocks of ``plan`` (:func:`transcript_plan`) from each of the
+    ``(T, 4)`` word states ``starts``, with the ``(T, plan.words)`` message
+    words placed as its layout says, and squeeze each challenge:
+    ``LE(state' || keccak256(state')) mod r``.  One launch, a block a
+    transcript.  Returns the final states ``(T, 4)`` and the
+    ``plan.challenges`` challenges ``(T, NW, C)``, canonical words in run
+    order."""
+    if not isinstance(plan, TranscriptPlan):
+        raise TypeError("keccak_transcript: the run is a TranscriptPlan (transcript_plan checks it)")
+    dev = _check(starts, "keccak_transcript starts")
+    ops = ((plan.template, "template"), (plan.layout, "layout"), (msgs, "msgs"))
+    if any(_check(t, f"keccak_transcript {what}") != dev or t.device != starts.device for t, what in ops):
+        raise ValueError("keccak_transcript: every operand on the same device")
+    if starts.dim() != 2 or starts.shape[1] != 4:
+        raise ValueError(f"keccak_transcript starts: expected (T, 4) words, got {tuple(starts.shape)}")
+    if tuple(msgs.shape) != (starts.shape[0], plan.words):
+        raise ValueError(f"keccak_transcript msgs: expected ({starts.shape[0]}, {plan.words}) words, "
+                         f"got {tuple(msgs.shape)}")
     if dev == "cpu":
-        return keccak_transcript_plain(state, blocks, high)
-    out = torch.empty(64 if high else 32, dtype=torch.int64, device=state.device)
-    _launch("keccak_transcript", state.data_ptr(), blocks.data_ptr(), blocks.shape[0], int(bool(high)),
-            out.data_ptr())
-    return out
+        return keccak_transcript_plain(starts, plan.template, plan.layout, msgs, plan.challenges)
+    states = torch.empty_like(starts)
+    chals = torch.empty((starts.shape[0], NW, plan.challenges), dtype=torch.int64, device=starts.device)
+    if starts.shape[0]:
+        _launch("keccak_transcript", starts.data_ptr(), plan.template.data_ptr(), plan.layout.data_ptr(),
+                msgs.data_ptr(), starts.shape[0], plan.template.shape[0], plan.words, plan.challenges,
+                states.data_ptr(), chals.data_ptr())
+    return states, chals

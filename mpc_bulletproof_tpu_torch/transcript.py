@@ -10,7 +10,9 @@ byte:
   64 zero bytes), challenges map to scalars through :func:`hash_to_scalar`.
 
 The fused provers run the same chain on the card
-(:mod:`.ops.transcript_t`) and write the final state back here.  The R1CS
+(:mod:`.ops.transcript_t`) and write the final state back here; the
+range-proof and IPP verifiers replay theirs there (:func:`replay`: every
+byte a verifier absorbs is in the proof, so a replay is one launch).  The R1CS
 prover draws its blindings from :meth:`HashChainTranscript.build_rng`, a
 counter-mode keccak RNG keyed by the transcript, the witness and fresh
 entropy.  :class:`MpcTranscript` wraps the transcript of a collaborative
@@ -28,6 +30,64 @@ from .ops.curve import StarkPoint, stark_point_to_transcript_bytes
 from .ops.field import Scalar
 from .ops.keccak import keccak256, keccak256_batch, pad_label
 from .utils.errors import ProofError
+
+
+def rangeproof_domain_steps(n: int, m: int) -> list:
+    """The range proof's domain separator as transcript steps (label, message)."""
+    return [(b"dom-sep", pad_label(b"rangeproof v1")), (b"n", int(n).to_bytes(8, "little")),
+            (b"m", int(m).to_bytes(8, "little"))]
+
+
+def innerproduct_domain_steps(n: int) -> list:
+    """The inner-product argument's domain separator as transcript steps."""
+    return [(b"dom-sep", pad_label(b"ipp v1")), (b"n", int(n).to_bytes(8, "little"))]
+
+
+def scalar_message(scalar: Scalar) -> bytes:
+    """A scalar as the transcript absorbs it: 32 LE bytes."""
+    return bytes(reversed(scalar.to_bytes_be()))
+
+
+def validated_point_message(point: StarkPoint) -> bytes:
+    """``validate_and_append_point``'s message: the identity is refused."""
+    if point.is_identity():
+        raise ProofError("verification error: identity point in transcript")
+    return stark_point_to_transcript_bytes(point)
+
+
+def replay(transcripts: list, runs: list, device) -> list[list[int]]:
+    """Replay on ``device`` each transcript's run of steps, ``(label,
+    message bytes)`` absorbs and ``(label, None)`` challenges, as the host
+    transcript would run them; every run takes the same labels and message
+    lengths (one verification's, or a batch's).  One
+    :func:`.ops.transcript_t.absorb_many` call for all (one
+    ``keccak_transcript`` launch on the card, its plain version on the
+    CPU) and one copy back: each transcript's state is set to its run's
+    end, and each run's challenges come back as ints in ``[0, r)``."""
+    import torch
+
+    from .ops import transcript_t as tj
+    from .ops.limb import NW, words_to_ints
+
+    def shape(run):
+        if any(msg is not None and len(msg) % 8 for _, msg in run):
+            raise ValueError("replay: transcript messages are whole 64-bit words")
+        return [(label, None if msg is None else len(msg) // 8) for label, msg in run]
+
+    steps = shape(runs[0])
+    if any(shape(run) != steps for run in runs[1:]):
+        raise ValueError("replay: every run takes the same labels and message lengths")
+    raw = b"".join(msg for run in runs for _, msg in run if msg is not None)
+    msgs = np.frombuffer(raw, dtype="<u8").view(np.int64).reshape(len(runs), -1).copy()
+    starts = np.stack([tj.state_words(t.state) for t in transcripts])
+    state, u = tj.absorb_many(torch.as_tensor(starts, device=device), steps,
+                              torch.as_tensor(msgs, device=device))
+    k = len(transcripts)
+    flat = (state if u is None else torch.cat([state.reshape(-1), u.reshape(-1)])).reshape(-1)
+    host = flat.cpu().numpy()
+    for t, words in zip(transcripts, host[: 4 * k].reshape(k, 4)):
+        t.state = tj.state_bytes(words)
+    return [words_to_ints(us) for us in host[4 * k :].reshape(k, NW, -1)]
 
 
 def hash_to_scalar(low_u256: bytes) -> Scalar:
@@ -61,13 +121,12 @@ class HashChainTranscript:
         return self.state
 
     def rangeproof_domain_sep(self, n: int, m: int) -> None:
-        self.append_message(b"dom-sep", pad_label(b"rangeproof v1"))
-        self.append_u64(b"n", n)
-        self.append_u64(b"m", m)
+        for label, msg in rangeproof_domain_steps(n, m):
+            self.append_message(label, msg)
 
     def innerproduct_domain_sep(self, n: int) -> None:
-        self.append_message(b"dom-sep", pad_label(b"ipp v1"))
-        self.append_u64(b"n", n)
+        for label, msg in innerproduct_domain_steps(n):
+            self.append_message(label, msg)
 
     def r1cs_domain_sep(self) -> None:
         self.append_message(b"dom-sep", pad_label(b"r1cs v1"))
@@ -79,16 +138,14 @@ class HashChainTranscript:
         self.append_message(b"dom-sep", pad_label(b"r1cs-2phase"))
 
     def append_scalar(self, label: bytes, scalar: Scalar) -> None:
-        self.append_message(label, bytes(reversed(scalar.to_bytes_be())))
+        self.append_message(label, scalar_message(scalar))
 
     def append_point(self, label: bytes, point: StarkPoint) -> None:
         self.append_message(label, stark_point_to_transcript_bytes(point))
 
     def validate_and_append_point(self, label: bytes, point: StarkPoint) -> None:
         """Reject the identity point, then absorb it."""
-        if point.is_identity():
-            raise ProofError("verification error: identity point in transcript")
-        self.append_point(label, point)
+        self.append_message(label, validated_point_message(point))
 
     def challenge_scalar(self, label: bytes) -> Scalar:
         return hash_to_scalar(self.challenge_bytes(label))

@@ -62,7 +62,7 @@ def test_tensor_transcript_matches_jax_device_and_host():
     jt = jtranscript.HashChainTranscript(b"torch-port")
     tt = ttranscript.HashChainTranscript(b"torch-port")
     assert jt.state == tt.state
-    state_t = _bytes_t(tt.state)
+    state_t = torch.as_tensor(transcript_t.state_words(tt.state))
     state_j = jnp.asarray(np.frombuffer(jt.state, np.uint8).astype(np.uint32))
 
     # points absorb as x || y LE felts (identity = zeros), through the
@@ -73,15 +73,16 @@ def test_tensor_transcript_matches_jax_device_and_host():
             for p in jpts]
     arr = torch.as_tensor(curve_t.points_from_host(tpts))
     x, y, iid = transcript_t.lazy_points_to_affine(arr)
-    enc = transcript_t.points_transcript_bytes(x, y, iid)
+    enc = transcript_t.points_words(x, y, iid).reshape(2, 8)
     jenc = tjax.points_transcript_bytes(*[jnp.asarray(jlimb.ints_to_limbs(words_to_ints(v))) for v in (x, y)],
                                         jnp.asarray(iid.numpy()))
-    assert np.array_equal(np.asarray(jenc), enc.numpy())
+    assert np.array_equal(np.asarray(jenc).T.astype(np.uint8).reshape(-1),
+                          enc.numpy().astype("<i8").view(np.uint8).reshape(-1))
     for i, lbl in enumerate([b"L", b"R"]):
-        state_t = transcript_t.absorb(state_t, lbl, enc[:, i])
+        state_t = transcript_t.absorb(state_t, lbl, enc[i])
         jt.append_point(lbl, jpts[i])
         tt.append_point(lbl, tpts[i])
-        assert bytes(state_t.tolist()) == jt.state == tt.state
+        assert transcript_t.state_bytes(state_t.numpy()) == jt.state == tt.state
     # the JAX package's device transcript absorbs the same bytes (eager; its
     # challenge is the host's, which the port matches below)
     state_j = tjax.absorb(state_j, b"L", jenc[:, 0], 64)
@@ -91,24 +92,26 @@ def test_tensor_transcript_matches_jax_device_and_host():
 
     # a scalar absorb and challenges
     s = Scalar(2**250 + 12345)
-    state_t = transcript_t.absorb(state_t, b"t_x", transcript_t.felt_bytes_le(
-        torch.as_tensor(ints_to_words([int(s)])))[:, 0])
+    state_t = transcript_t.absorb(state_t, b"t_x", transcript_t.scalars_words(
+        torch.as_tensor(ints_to_words([int(s)]))))
     jt.append_scalar(b"t_x", JScalar(int(s)))
     tt.append_scalar(b"t_x", s)
-    assert bytes(state_t.tolist()) == jt.state == tt.state
+    assert transcript_t.state_bytes(state_t.numpy()) == jt.state == tt.state
     for lbl in (b"u", b"w"):
         state_t, u = transcript_t.challenge_scalar(state_t, lbl)
         want = jt.challenge_scalar(lbl)
         assert int(tt.challenge_scalar(lbl)) == int(want)
         assert words_to_ints(u) == [int(want)]
-        assert bytes(state_t.tolist()) == jt.state == tt.state
+        assert transcript_t.state_bytes(state_t.numpy()) == jt.state == tt.state
 
-    # the single-block limit: 32 state + 32 label + 71 message = 135 bytes
-    # (the protocol's longest absorb, a point, is 128)
-    long_msg = _bytes_t(bytes(range(71)))
-    state_t = transcript_t.absorb(state_t, b"n", long_msg)
-    jt.append_message(b"n", bytes(range(71)))
-    assert bytes(state_t.tolist()) == jt.state
+    # the single-block limit with whole words: 32 state + 32 label + 64
+    # message = 128 bytes (the protocol's longest absorb, a point); 72 are refused
+    long_msg = np.frombuffer(bytes(range(64)), "<i8").copy()
+    state_t = transcript_t.absorb(state_t, b"n", torch.as_tensor(long_msg))
+    jt.append_message(b"n", bytes(range(64)))
+    assert transcript_t.state_bytes(state_t.numpy()) == jt.state
+    with pytest.raises(ValueError, match="135"):
+        transcript_t.absorb(state_t, b"n", torch.zeros(9, dtype=torch.int64))
 
 
 def test_bytes_to_scalar_mod_r_matches_jax():

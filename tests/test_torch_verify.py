@@ -24,11 +24,14 @@ from mpc_bulletproof_tpu.models.inner_product import InnerProductProof as JIPP
 from mpc_bulletproof_tpu.models.range_proof import RangeProof as JRangeProof
 from mpc_bulletproof_tpu.ops.field import inner_product as j_inner_product
 from mpc_bulletproof_tpu.ops.field import scalar_powers as j_scalar_powers
+from mpc_bulletproof_tpu.utils.errors import ProofError as JProofError
 from mpc_bulletproof_tpu.utils.errors import VerificationError as JVerificationError
 from mpc_bulletproof_tpu.utils.native import scalars_to_ints
 from mpc_bulletproof_tpu_torch import (BulletproofGens, HashChainTranscript, PedersenGens,
                                        RangeProof, Scalar, StarkPoint, VerificationError, pinned)
 from mpc_bulletproof_tpu_torch.models.inner_product import InnerProductProof
+from mpc_bulletproof_tpu_torch.ops import kernels
+from mpc_bulletproof_tpu_torch.utils.errors import ProofError
 from test_torch_range_proof import jax_host_prove
 
 # Under pytest-xdist several worker processes share the cores: split them,
@@ -76,16 +79,44 @@ def _outcome(fn, *errors) -> bool:
     return True
 
 
-def test_verification_terms_match_jax(rp82):
+def test_verification_terms_match_jax(rp82, monkeypatch):
+    """The port replays the whole transcript in one ``keccak_transcript``
+    call (the plain version here); its scalars are the JAX package's host
+    route's, and the caller's transcript ends in the host route's state."""
+    calls = []
+    orig = kernels.keccak_transcript
+    monkeypatch.setattr(kernels, "keccak_transcript", lambda *a: calls.append(a[0].shape) or orig(*a))
+    tr, j_tr = HashChainTranscript(pinned.TRANSCRIPT_LABEL), JTranscript(pinned.TRANSCRIPT_LABEL)
     (g, h), scalars, points = rp82["proof"]._verification_terms(
-        rp82["gens"], PedersenGens(), HashChainTranscript(pinned.TRANSCRIPT_LABEL), rp82["V"], N)
+        rp82["gens"], PedersenGens(), tr, rp82["V"], N, device="cpu")
     (jg, jh), j_scalars, j_points = rp82["j_proof"]._verification_terms(
-        rp82["j_gens"], JPedersen(), JTranscript(pinned.TRANSCRIPT_LABEL), rp82["j_V"], N)
+        rp82["j_gens"], JPedersen(), j_tr, rp82["j_V"], N)
     assert g == scalars_to_ints(jg)
     assert h == scalars_to_ints(jh)
     assert scalars == [int(s) for s in j_scalars]
     assert [p.to_bytes() for p in points] == [p.to_bytes() for p in j_points]
     assert len(scalars) + len(g) + len(h) == 4 + M + 2 + 2 * 4 + 2 * N * M   # 48 points
+    assert tr.state == j_tr.state
+    assert calls == [(1, 4)]
+
+
+@pytest.mark.parametrize("case", ["A", "T_2", "L_1"])
+def test_identity_point_in_the_replay_raises_proof_error(rp82, case):
+    """``validate_and_append_point``'s refusal holds on the replay: an
+    identity A, T_2 or IPP L raises ``ProofError`` in both packages."""
+    proof = RangeProof.from_bytes(rp82["proof"].to_bytes())
+    j_proof = JRangeProof.from_bytes(rp82["proof"].to_bytes())
+    for p, ident in ((proof, StarkPoint.identity()), (j_proof, JPoint.identity())):
+        if case == "L_1":
+            p.ipp_proof.L_vec[0] = ident
+        else:
+            setattr(p, case, ident)
+    with pytest.raises(ProofError, match="identity"):
+        proof._verification_terms(rp82["gens"], PedersenGens(), HashChainTranscript(pinned.TRANSCRIPT_LABEL),
+                                  rp82["V"], N, device="cpu")
+    with pytest.raises(JProofError, match="identity"):
+        j_proof._verification_terms(rp82["j_gens"], JPedersen(), JTranscript(pinned.TRANSCRIPT_LABEL),
+                                    rp82["j_V"], N)
 
 
 @pytest.mark.parametrize("case", ["valid", "t_x+1", "swap_L1_R1"])
@@ -128,7 +159,7 @@ def test_prove_and_verify_single_match_jax(rp82, monkeypatch):
     assert not device_calls
 
 
-def test_verify_batch_matches_jax(rp82):
+def test_verify_batch_matches_jax(rp82, monkeypatch):
     rng = random.Random(5)
     values = [rng.randrange(1 << N) for _ in range(M)]
     blindings = [JScalar(rng.getrandbits(251)) for _ in range(M)]
@@ -137,6 +168,9 @@ def test_verify_batch_matches_jax(rp82):
                                                 values, blindings, N)
     datas = [rp82["proof"].to_bytes(), j_second.to_bytes()]
     j_comms = [rp82["j_V"], j_V2]
+    calls = []
+    orig = kernels.keccak_transcript
+    monkeypatch.setattr(kernels, "keccak_transcript", lambda *a: calls.append(a[0].shape) or orig(*a))
     for case in ("valid", "t_x+1"):
         batch = [datas[0], _tampered(datas[1], case)]
         port = _outcome(lambda: RangeProof.verify_batch(
@@ -149,6 +183,7 @@ def test_verify_batch_matches_jax(rp82):
             [JTranscript(pinned.TRANSCRIPT_LABEL), JTranscript(label)], j_comms, N),
             JVerificationError)
         assert port == jax_ok == (case == "valid")
+    assert calls == [(2, 4)] * 2                # both transcripts of a batch in one call
 
 
 def test_ipp_verify_matches_jax():

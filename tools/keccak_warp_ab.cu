@@ -8,9 +8,9 @@
 //      (2 shuffle levels a round, 26 SHFL);
 //   2: every exchange through shared memory (3 buffers, a syncwarp each);
 //   3: the column gather through shared memory, the rest by shuffles.
-// ab_transcript: bp_keccak_transcript with a run's bytes staged in shared
-//   memory first (up to 64 blocks a pass) instead of each block's words
-//   loaded by their threads one permutation ahead.
+// ab_transcript: bp_keccak_transcript with each challenge's hash and
+//   reduction run by the chain warp itself instead of by the side warp
+//   beside the chain (the same staging and epilogue).
 #include "keccak.cu"
 
 // ---- variant 1: theta's two parities from ten gathered words (one shuffle level) ----
@@ -138,40 +138,35 @@ extern "C" int ab_chain(const void *starts, void *out, long long chains, long lo
   return (int)cudaGetLastError();
 }
 
-// ---- the transcript with a run's bytes staged in shared memory ----
-static const int STAGE_BLOCKS = 64;
-
-__global__ void ab_transcript_staged(const long long *__restrict__ state, const long long *__restrict__ blocks,
-                                     long long nblocks, int high, long long *__restrict__ out) {
-  __shared__ __align__(16) unsigned char sb[STAGE_BLOCKS * 136];
+// ---- the transcript with every challenge on the chain warp ----
+__global__ void __launch_bounds__(TRANSCRIPT_THREADS)
+ab_transcript_inline(const u64 *__restrict__ starts, const u64 *__restrict__ tmpl,
+                     const long long *__restrict__ layout, const u64 *__restrict__ msgs, long long nblocks,
+                     long long msg_words, long long challenges, u64 *__restrict__ states,
+                     u64 *__restrict__ chals) {
+  extern __shared__ u64 smem[];
+  const long long tr = blockIdx.x;
+  u64 a = threadIdx.x < 4 ? starts[4 * tr + threadIdx.x] : 0ull;
+  const StagedRun run = stage_run(smem, tmpl, layout, msgs + msg_words * tr, nblocks, msg_words, challenges);
+  if (threadIdx.x >= 32) return;
   const int t = threadIdx.x;
   const WarpLane l = warp_lane(t);
-  const bool data = t >= 4 && t < 17;
-  u64 a = t < 4 ? load_byte_word(state + 8 * t) : 0ull;
-  for (long long base = 0; base < nblocks; base += STAGE_BLOCKS) {
-    const long long n = nblocks - base < STAGE_BLOCKS ? nblocks - base : STAGE_BLOCKS;
-    const long long *src = blocks + 136 * base;
-#pragma unroll 8
-    for (long long k = t; k < 136 * n; k += 32) sb[k] = (unsigned char)src[k];
-    __syncwarp();
-    for (long long i = 0; i < n; ++i) {
-      const u64 w = data ? *(const u64 *)(sb + 136 * i + 8 * t) : 0ull;
-      a = keccak_f_warp(t < 4 ? a : w, l);
-    }
-    __syncwarp();
+  u64 *out = chals + 4 * challenges * tr;
+  u64 next = nblocks > 0 ? staged_word(run.tmpl, run.layout, run.msg, 0, t) : 0ull;
+  long long c = 0;
+  for (long long i = 0; i < nblocks; ++i) {
+    const u64 in = t < 4 ? a : next;
+    const bool challenge = run.layout[4 * i + 3] != 0;
+    next = i + 1 < nblocks ? staged_word(run.tmpl, run.layout, run.msg, i + 1, t) : 0ull;
+    a = keccak_f_warp(in, l);
+    if (challenge && c < challenges) squeeze_challenge(a, l, t, out, challenges, c++);
   }
-  if (t < 4)
-    for (int k = 0; k < 8; ++k) out[8 * t + k] = (long long)((a >> (8 * k)) & 0xff);
-  if (high) {
-    a = keccak_f_warp(t < 4 ? a : pad32_word(t), l);
-    if (t < 4)
-      for (int k = 0; k < 8; ++k) out[32 + 8 * t + k] = (long long)((a >> (8 * k)) & 0xff);
-  }
+  if (t < 4) states[4 * tr + t] = a;
 }
 
-extern "C" int ab_transcript(const void *state, const void *blocks, long long nblocks, int high, void *out,
-                             void *stream) {
-  ab_transcript_staged<<<1, 32, 0, (cudaStream_t)stream>>>((const long long *)state, (const long long *)blocks,
-                                                           nblocks, high, (long long *)out);
-  return (int)cudaGetLastError();
+extern "C" int ab_transcript(const void *starts, const void *tmpl, const void *layout, const void *msgs,
+                             long long transcripts, long long nblocks, long long msg_words,
+                             long long challenges, void *states, void *chals, void *stream) {
+  return launch_transcript(ab_transcript_inline, starts, tmpl, layout, msgs, transcripts, nblocks, msg_words,
+                           challenges, states, chals, stream);
 }

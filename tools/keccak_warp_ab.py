@@ -12,10 +12,12 @@ each keccak kernel's main loop, then, one JSON line each:
   of ``ab_chain`` (0 is ``keccak_f_warp`` itself), each held byte for byte
   to ``kernels.keccak_chain``, timed by CUDA events in turns (0, 2, 3, 1,
   1, 3, 2, 0), with cycles a step at the SM clock under load;
-- ``keccak_transcript`` against the staged transcript at an IPP round's
-  run (2 absorbs and the challenge; 3 and the challenge) and the range
-  prover's V run (64 absorbs), held to each other, device ms by the
-  profiler in turns (port, staged, staged, port).
+- ``keccak_transcript`` (each challenge hashed and reduced by the side
+  warp) against the same kernel with every challenge on the chain warp
+  (``inline``), at an IPP round's run (L, R, u), the prover's V, A, S, y,
+  z run at m = 64 and a whole (64, 64) verification's replay, held to each
+  other word for word, device ms by the profiler in turns (port, inline,
+  inline, port).
 
 Imports nothing of JAX.  Exits 1 without a card.
 """
@@ -34,7 +36,7 @@ sys.path.insert(0, str(ROOT))
 
 STEPS = 1 << 15
 CHAIN_ORDER = (0, 2, 3, 1, 1, 3, 2, 0)
-TRANSCRIPT_RUNS = ((3, True), (64, False), (2, True))
+
 
 
 def build(kernels) -> str:
@@ -72,8 +74,7 @@ def main() -> int:
     chain = ctypes.CDLL(lib).ab_chain
     chain.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
     transcript = ctypes.CDLL(lib).ab_transcript
-    transcript.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p]
+    transcript.argtypes = kernels.KERNELS["keccak_transcript"][2]
     dev = torch.device("cuda")
     cs.SM_CLOCK_MHZ = cs.measure_clock(dev)
     stream = lambda: torch.cuda.current_stream().cuda_stream
@@ -98,19 +99,34 @@ def main() -> int:
                                                                       for v, o in outs.items()},
                           "ms": ms, "cycles_a_step": {v: [m * cs.SM_CLOCK_MHZ * 1e3 / STEPS for m in t]
                                                       for v, t in ms.items()}}), flush=True)
-    for j, high in TRANSCRIPT_RUNS:
-        s = torch.randint(0, 256, (32,), generator=gen, device=dev, dtype=torch.int64)
-        b = cs.transcript_blocks(gen, dev, [128] * j)
-        out = torch.empty(64 if high else 32, dtype=torch.int64, device=dev)
-        runs = {"port": lambda: kernels.keccak_transcript(s, b, high),
-                "staged": lambda: transcript(s.data_ptr(), b.data_ptr(), j, int(high), out.data_ptr(), stream())}
-        runs["staged"]()
+    from mpc_bulletproof_tpu_torch.ops import transcript_t as tj
+
+    runs = {"ipp_round": [(b"L", 8), (b"R", 8), (b"u", None)],
+            "v_run_A_S_y_z": [(b"V", 8)] * 64 + [(b"A", 8), (b"S", 8), (b"y", None), (b"z", None)],
+            "verify_64x64": cs.verify_replay_steps(64, 64)}
+    for what, steps in runs.items():
+        plan = tj._plan(tuple(steps), dev)
+        n_chal = plan.challenges
+        starts = torch.randint(-(1 << 63), (1 << 63) - 1, (1, 4), generator=gen, device=dev, dtype=torch.int64)
+        msgs = torch.randint(-(1 << 63), (1 << 63) - 1, (1, plan.words), generator=gen, device=dev,
+                             dtype=torch.int64)
+        states, chals = torch.empty_like(starts), torch.empty((1, 4, n_chal), dtype=torch.int64, device=dev)
+
+        def inline():
+            if transcript(starts.data_ptr(), plan.template.data_ptr(), plan.layout.data_ptr(), msgs.data_ptr(), 1,
+                          len(steps), plan.words, n_chal, states.data_ptr(), chals.data_ptr(), stream()):
+                raise RuntimeError("ab_transcript: launch failed")
+
+        fns = {"port": lambda: kernels.keccak_transcript(starts, plan, msgs), "inline": inline}
+        inline()
+        want = kernels.keccak_transcript(starts, plan, msgs)
         torch.cuda.synchronize()
-        equal = bool(torch.equal(out, kernels.keccak_transcript(s, b, high)))
-        ms = {"port": [], "staged": []}
-        for who in ("port", "staged", "staged", "port"):
-            ms[who].append(cs.device_ms(runs[who], 20))
-        print(json.dumps({"transcript": [j, high], "equal": equal, "device_ms": ms}), flush=True)
+        equal = bool(torch.equal(states, want[0]) and torch.equal(chals, want[1]))
+        ms = {"port": [], "inline": []}
+        for who in ("port", "inline", "inline", "port"):
+            ms[who].append(cs.device_ms(fns[who], 20))
+        print(json.dumps({"transcript": what, "blocks": len(steps), "challenges": n_chal, "equal": equal,
+                          "device_ms": ms}), flush=True)
     return 0
 
 
