@@ -14,11 +14,13 @@ Phases, one JSON object per line on standard output:
    (``probe_xor_chain``) runs, which every per-pipe bound below uses.
 3. ``kernel``: each kernel against its plain PyTorch version on the card:
    ``point_add``, the inner scan and Horner at the shapes each of the
-   prove, verify, msm, r1cs_prove, r1cs_verify and ipp paths launches them
-   with (ipp: a round's pair of MSMs at 2^20, Horner at k = 2 and c = 16;
-   ``ipp_fold``: the 2^19-lane add of a fold of the 2^20 G),
+   prove, verify, msm, r1cs_prove, r1cs_verify, ipp and mesh paths launches
+   them with (ipp: a round's pair of MSMs at 2^20, Horner at k = 2 and c =
+   16; mesh: prove's round pair on one of 4 shards; ``ipp_fold``: the
+   2^19-lane add of a fold of the 2^20 G),
    the segmented reduction (``point_reduce``) at every sum the paths run
-   (prove's A bit sum, 1 x 2nm; every path's bucket tails; the fixed-base
+   (prove's A bit sum, 1 x 2nm; every path's bucket tails; the mesh path's
+   shard of the A sum and its collective, 2 x 4; the fixed-base
    commitments of prove, m + 2 x 64, and of the msm phase's set-up,
    2^17 x 64), at a ragged shape and at a one-level shape (S x 2), the
    ladder at the range
@@ -135,6 +137,24 @@ Phases, one JSON object per line on standard output:
    the result must equal (sum_i s_i k_i) G.  Launch counts around one MSM,
    the median of warm ones, peak memory, a device profile; then one MSM of
    8,286 points (the (64, 64) verification's width), checked the same way.
+   ``mesh``: the port's device mesh (``parallel/sharded.py``) on virtual
+   meshes of ``MESH_SHARDS`` shards on this card (``Mesh([dev] * k)``),
+   and on every card when there are two or more (``make_mesh()``; with one
+   card ``real_mesh`` says ``needs >= 2 cards``).  On each mesh:
+   ``sharded_msm`` at 2^20 on the msm phase's inputs must equal
+   ``msm_device``'s result and (sum s_i k_i) G (launches and peak memory of
+   one, then in turns with ``msm_device``); the (64, 64) proof by
+   ``prove_multiple_device(..., mesh=...)`` must give the pinned digest and
+   the unsharded proof's bytes (cold, launches, then in turns with the
+   unsharded prover; on ``MESH_PATH_SHARDS`` shards a ``profile``, and its
+   launches are the ``mesh`` path's); with ``set_mesh(mesh)`` the
+   8,286-point mega-check of ``verify_multiple`` and that of
+   ``verify_batch`` must each run once through ``sharded_msm`` and accept,
+   and the t_x + 1 copy raise ``VerificationError``, and after
+   ``set_mesh(None)`` none; the sharded inner product and point sum at
+   ``MESH_VEC_N`` lanes must equal the unsharded ones.  A virtual mesh
+   shares one card: its times are the collective's and the extra launches'
+   cost, not scaling.
 10. ``r1cs``: the shuffle gadget at k = 2^10 (2,046 multipliers, n = 2,048)
    on the pinned inputs: commit and gadget seconds, the cold proof and the
    median of warm ``Prover.prove`` calls, the digest of proof, commitments
@@ -234,7 +254,8 @@ Phases, one JSON object per line on standard output:
    same turns, the base on the former route (that kernel for the A sum, the
    halving tree of ``point_add`` launches for every other sum).
 17. the ``kernels`` summary with launches per path (``pd`` the
-   party/dealer proof, ``ipp`` one fused IPP proof at 2^20, ``tcp`` both
+   party/dealer proof, ``mesh`` one (64, 64) proof on a virtual mesh of
+   ``MESH_PATH_SHARDS`` shards, ``ipp`` one fused IPP proof at 2^20, ``tcp`` both
    processes of ``mpc_tcp``, ``gens`` the 2^17 set-up, ``rp_sweep`` and
    ``r1cs_sweep`` each sweep whole; for the
    scans and Horner also their ptxas registers and spills, launch
@@ -270,6 +291,14 @@ WARM_PROOFS = 3
 WARM_VERIFIES = 3
 WARM_MSMS = 3
 MSM_LOG2N = 20
+# The mesh phase: virtual meshes of these many shards on one card (4 is a
+# four-chip cell's count); the mesh path's launches are those of one (64,
+# 64) proof on MESH_PATH_SHARDS shards; the sharded inner product and point
+# sum at MESH_VEC_N lanes; WARM_MESH warm runs of each side in turns.
+MESH_SHARDS = (2, 4)
+MESH_PATH_SHARDS = 4
+MESH_VEC_N = 4096
+WARM_MESH = 3
 VEC_N = 4096
 MPC_BITS, MPC_VALUES = 64, 64
 MPC_VEC_N = 9 * MPC_BITS * MPC_VALUES  # lanes of the t-polynomial's one Beaver round
@@ -656,6 +685,8 @@ PATH_KERNELS = {
             "beaver_diff", "beaver_combine", "poly3_eval"},
     "pd": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "mod_pow_static",
            "vec2", "keccak_transcript"},
+    "mesh": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "mod_pow_static",
+             "vec2", "keccak_transcript"},
     "ipp": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "mod_pow_static",
             "vec2", "keccak_transcript"},
     "tcp": {"point_add", "point_scan_steps_inner", "point_horner_multi", "point_reduce", "vec2",
@@ -1073,17 +1104,22 @@ def path_shapes(n_bits: int = N_BITS, m_parties: int = M_PARTIES, log2n: int = M
     at least ``_DEVICE_MIN`` points (:func:`shuffle_phase_widths`; the
     smaller ones run on the host); r1cs_verify: the shuffle's mega-check;
     ipp: a round of the IPP alone at 2^ipp_log2n, a pair of 252-bit MSMs
-    over n + 1 points as r1cs_prove's."""
+    over n + 1 points as r1cs_prove's; mesh: prove's round pair on one of
+    ``MESH_PATH_SHARDS`` shards (its slice of the lanes)."""
     from mpc_bulletproof_tpu_torch.constants import FIELD_BITS
     from mpc_bulletproof_tpu_torch.ops import backend
     from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
 
     nm = n_bits * m_parties
-    W, n = 2 * 8, msm_mod.SPLIT_CHUNKS * (nm + 1)
-    nt, T = msm_mod._chunk_shape(W, n)
-    shapes = {"prove": {"n": n, "c": msm_mod.SPLIT_WINDOW, "W": W, "nt": nt, "T": T,
-                        "add": (W, nt), "tail": (W, 1 << (msm_mod.SPLIT_WINDOW - 1)),
-                        "horner": (8, 2)}}
+
+    def split_pair(n):
+        W = 2 * 8
+        nt, T = msm_mod._chunk_shape(W, n)
+        return {"n": n, "c": msm_mod.SPLIT_WINDOW, "W": W, "nt": nt, "T": T, "add": (W, nt),
+                "tail": (W, 1 << (msm_mod.SPLIT_WINDOW - 1)), "horner": (8, 2)}
+
+    lanes = msm_mod.SPLIT_CHUNKS * (nm + 1)
+    shapes = {"prove": split_pair(lanes), "mesh": split_pair(-(-lanes // MESH_PATH_SHARDS))}
     ipp_n, r1cs_width = shuffle_widths(shuffle_k)
     phase = [(f"r1cs_prove:{name}", n, 1) for name, n in shuffle_phase_widths(shuffle_k).items()
              if n >= backend._DEVICE_MIN]
@@ -1307,14 +1343,18 @@ def reduce_cases(shapes: dict, m_parties: int, nm: int) -> dict:
     """``{row: (S, n)}``, every segmented sum the paths run: prove's A bit
     sum (one segment of 2nm points), its bucket tails and its fixed-base
     commitments (m + 2 of 64 windows); each other path's bucket tails
-    (:func:`path_shapes`); the msm phase's set-up commitments; and a ragged
-    shape whose segments span blocks and a shape of one 1-level pass."""
+    (:func:`path_shapes`); the mesh path's shard of the A bit sum and its
+    collective (an IPP round's pair of partials, one a shard); the msm
+    phase's set-up commitments; and a ragged shape whose segments span
+    blocks and a shape of one 1-level pass."""
     from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
 
     windows = 2 * msm_mod.FB_WINDOWS
     cases = {"prove": (1, 2 * nm), "prove:tail": shapes["prove"]["tail"],
-             "prove:fixed_commit": (m_parties + 2, windows)}
-    cases.update({path: sh["tail"] for path, sh in shapes.items() if path != "prove"})
+             "prove:fixed_commit": (m_parties + 2, windows),
+             "mesh:A": (1, -(-2 * nm // MESH_PATH_SHARDS)), "mesh:collective": (2, MESH_PATH_SHARDS)}
+    # the mesh path's bucket tails are prove's shape
+    cases.update({path: sh["tail"] for path, sh in shapes.items() if path not in ("prove", "mesh")})
     cases.update({"msm_setup:fixed_commit": (MSM_SETUP_COMMITS, windows), "ragged": RAGGED_REDUCE,
                   "one_level": ONE_LEVEL_REDUCE})
     return cases
@@ -1764,6 +1804,7 @@ def verify_phase(gpu: str, dev, mp: dict, n_bits: int = N_BITS) -> dict:
            "msm_us_median": statistics.median(msm) * 1e3,
            "launches": launches, "gpu": gpu}
     emit(res)
+    res["second"] = (proof2, V2)
     return res
 
 
@@ -1836,6 +1877,172 @@ def msm_phase(gpu: str, dev, log2n: int = MSM_LOG2N) -> dict:
            "gpu": gpu}
     emit(res)
     emit(profile_run(lambda: run(n), med * 1e3, gpu, "msm"))
+    res.update(inputs=(s, pts), result=got)
+    return res
+
+
+def mesh_run(gpu: str, dev, mesh, mp: dict, vf: dict, ms: dict, profile: bool) -> dict:
+    """The mesh checks on one mesh: the sharded 2^MSM_LOG2N MSM on the msm
+    phase's inputs against ``msm_device``'s result and (sum s_i k_i) G;
+    the sharded (64, 64) prover against ``pinned.DIGESTS`` and the
+    unsharded proof's bytes; with the mesh installed, ``verify_multiple``
+    and ``verify_batch`` each counted once through ``sharded_msm`` and
+    accepting, a t_x + 1 copy raising, and after ``set_mesh(None)`` no
+    sharded call; the sharded inner product and point sum at
+    ``MESH_VEC_N`` lanes against the unsharded ones.  Launches and peak
+    memory around one MSM and one proof, and each side's times in turns
+    with the unsharded one (host clock, ms)."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch import HashChainTranscript, RangeProof, VerificationError, pinned
+    from mpc_bulletproof_tpu_torch.models.range_proof.fused_device import prove_multiple_device
+    from mpc_bulletproof_tpu_torch.ops import backend, curve_t, kernels, limb
+    from mpc_bulletproof_tpu_torch.ops import msm as msm_mod
+    from mpc_bulletproof_tpu_torch.ops.limb import FR, NW
+    from mpc_bulletproof_tpu_torch.parallel import sharded
+
+    t_start = time.perf_counter()
+    out = {"devices": [str(d) for d in mesh.devices], "shards": mesh.size}
+    host = lambda t: curve_t.points_to_host(t[..., None])[0]
+
+    # the sharded MSM on the msm phase's 2^20 points
+    s, pts = ms["inputs"]
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = host(sharded.sharded_msm(s, pts, mesh))
+    cold_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if got != ms["result"]:
+        raise RuntimeError(f"sharded_msm on {mesh} disagrees with msm_device and (sum s_i k_i) G")
+    turns = {"msm_device": [], "sharded_msm": []}
+    for _ in range(WARM_MSMS):
+        turns["msm_device"] += host_ms(lambda: host(msm_mod.msm_device(s, pts)), 1)
+        turns["sharded_msm"] += host_ms(lambda: host(sharded.sharded_msm(s, pts, mesh)), 1)
+    out["msm"] = {"n": s.shape[-1], "c": msm_mod.select_window(-(-s.shape[-1] // mesh.size)), "equal": True,
+                  "cold_s": cold_s, "warm_ms": turns,
+                  "ms_median": {k: statistics.median(v) for k, v in turns.items()},
+                  "peak_mem_bytes": peak, "mem_before_bytes": mem_before,
+                  "msm_device_peak_mem_bytes": ms["peak_mem_bytes"], "launches": launches}
+
+    # the sharded (64, 64) prover on the pinned inputs
+    want = pinned.DIGESTS[(N_BITS, M_PARTIES)]
+    values, blindings = pinned.inputs(N_BITS, M_PARTIES)
+    ref = mp["proof"].to_bytes()
+
+    def prove(on=mesh):
+        tr = HashChainTranscript(pinned.TRANSCRIPT_LABEL)
+        proof, V = prove_multiple_device(mp["bp_gens"], mp["pc_gens"], tr, values, blindings, N_BITS, device=dev,
+                                         rng_bytes=pinned.det_stream(), mesh=on)
+        digest = pinned.proof_digest(proof, V, tr.state)
+        if digest != want:
+            raise RuntimeError(f"proof digest on {on}: {digest} != pinned {want}")
+        return proof
+
+    t0 = time.perf_counter()
+    if prove().to_bytes() != ref:
+        raise RuntimeError(f"the proof on {mesh} is not the unsharded proof's bytes")
+    cold_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    sharded.reset_calls()
+    torch.cuda.reset_peak_memory_stats()
+    prove()
+    launches, calls = dict(kernels.launches), dict(sharded.calls)
+    peak = torch.cuda.max_memory_allocated()
+    turns = {"unsharded": [], "sharded": []}
+    for _ in range(WARM_MESH):
+        turns["unsharded"] += host_ms(lambda: prove(None), 1)
+        turns["sharded"] += host_ms(prove, 1)
+    med = {k: statistics.median(v) * 1e3 for k, v in turns.items()}
+    out["prove"] = {"digest": want, "digest_equal": True, "bytes_equal_unsharded": True, "cold_s": cold_s,
+                    "warm_ms": turns, "us_median": med, "launches": launches, "sharded_calls": calls,
+                    "peak_mem_bytes": peak, "main_path_peak_mem_bytes": mp["peak_mem_bytes"]}
+    if profile:
+        prof = profile_run(prove, med["sharded"], gpu, f"mesh_prove_{mesh.size}")
+        emit(prof)
+        out["prove"]["profile_counts_match"] = prof["counts_match"]
+
+    # the verifiers' MSMs routed through the mesh
+    proof, V = mp["proof"], mp["V"]
+    proof2, V2 = vf["second"]
+    bp_gens, pc_gens = mp["bp_gens"], mp["pc_gens"]
+    tr = lambda: HashChainTranscript(pinned.TRANSCRIPT_LABEL)
+    verify = lambda p=proof: p.verify_multiple(bp_gens, pc_gens, tr(), V, N_BITS, device=dev)
+    routed = {}
+    turns = {"unsharded": [], "sharded": []}
+    backend.set_mesh(mesh)
+    try:
+        sharded.reset_calls()
+        verify()
+        routed["verify_multiple"] = sharded.calls["sharded_msm"]
+        try:
+            verify(tampered(proof, "t_x+1"))
+        except VerificationError:
+            routed["t_x+1_rejected"] = True
+        else:
+            raise RuntimeError(f"verify through {mesh} accepted a tampered proof")
+        before = sharded.calls["sharded_msm"]
+        RangeProof.verify_batch([proof, proof2], bp_gens, pc_gens, [tr(), HashChainTranscript(b"batch-2")],
+                                [V, V2], N_BITS, device=dev)
+        routed["verify_batch"] = sharded.calls["sharded_msm"] - before
+        for _ in range(WARM_VERIFIES):
+            backend.set_mesh(None)
+            turns["unsharded"] += host_ms(verify, 1)
+            backend.set_mesh(mesh)
+            turns["sharded"] += host_ms(verify, 1)
+    finally:
+        backend.set_mesh(None)
+    sharded.reset_calls()
+    verify()
+    routed["after_set_mesh_none"] = sharded.calls["sharded_msm"]
+    if (routed["verify_multiple"], routed["verify_batch"], routed["after_set_mesh_none"]) != (1, 1, 0):
+        raise RuntimeError(f"the verifiers' MSMs did not take the mesh route as set: {routed}")
+    out["verify"] = {"msm_points": verify_width(N_BITS, M_PARTIES), "routed": routed, "warm_ms": turns,
+                     "us_median": {k: statistics.median(v) * 1e3 for k, v in turns.items()}}
+
+    # the sharded inner product and point sum
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    a, b = (torch.randint(-(2**63), 2**63 - 1, (NW, MESH_VEC_N), generator=gen, device=dev) for _ in range(2))
+    a[3] &= (1 << 59) - 1
+    b[3] &= (1 << 59) - 1
+    ip = sharded.sharded_inner_product(a, b, mesh)
+    few = pts[..., :MESH_VEC_N].contiguous()
+    ps = sharded.sharded_point_sum(few, mesh)
+    out["vectors"] = {"lanes": MESH_VEC_N,
+                      "inner_product_equal": bool(torch.equal(ip, limb.inner_product_mod(a, b, FR))),
+                      "point_sum_equal": affine_equal(ps[..., None], msm_mod._reduce_sum(few))}
+    if not (out["vectors"]["inner_product_equal"] and out["vectors"]["point_sum_equal"]):
+        raise RuntimeError(f"the sharded inner product or point sum on {mesh} disagrees: {out['vectors']}")
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def mesh_phase(gpu: str, dev, mp: dict, vf: dict, ms: dict) -> dict:
+    """:func:`mesh_run` on virtual meshes of ``MESH_SHARDS`` shards on this
+    card (the ``MESH_PATH_SHARDS`` one profiled; its proof's launches are
+    the mesh path's), and on every card when there are two or more."""
+    import torch
+
+    from mpc_bulletproof_tpu_torch.parallel.sharded import Mesh, make_mesh
+
+    t0 = time.perf_counter()
+    res = {"phase": "mesh", "note": "a virtual mesh shares one card: its times are the collective's and the "
+                                    "extra launches' cost, not scaling"}
+    for k in MESH_SHARDS:
+        res[f"virtual_{k}"] = mesh_run(gpu, dev, Mesh([dev] * k), mp, vf, ms, profile=k == MESH_PATH_SHARDS)
+    if torch.cuda.device_count() >= 2:
+        res["real_mesh"] = mesh_run(gpu, dev, make_mesh(), mp, vf, ms, profile=False)
+    else:
+        res["real_mesh"] = "needs >= 2 cards"
+    res["launches"] = require_launches("mesh", res[f"virtual_{MESH_PATH_SHARDS}"]["prove"]["launches"])
+    res["phase_s"] = time.perf_counter() - t0
+    res["gpu"] = gpu
+    emit(res)
     return res
 
 
@@ -3772,6 +3979,7 @@ def main() -> int:
     rs = rp_sweep_phase(gpu, dev, mp)
     pd = party_dealer_phase(gpu, dev, mp)
     ms = msm_phase(gpu, dev)
+    mh = mesh_phase(gpu, dev, mp, vf, ms)
     rc = r1cs_phase(gpu, dev)
     r1s = r1cs_sweep_phase(gpu, dev, gn["gens"][(1024, 1)])
     ip = ipp_phase(gpu, dev)
@@ -3782,7 +3990,7 @@ def main() -> int:
     if args.ab:
         ab_phase(gpu, dev, args.ab, {"prove": mp["proof_run"], "r1cs_prove": rc["proof_run"]})
 
-    paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"],
+    paths = {"prove": mp["launches"], "verify": vf["launches"], "msm": ms["launches"], "mesh": mh["launches"],
              **rc["launches"], "ipp": ip["launches"], "mpc": mc["launches"], "pd": pd["launches"],
              "tcp": tcp["launches"], "probes": pr["launches"], "gens": gn["launches"],
              "rp_sweep": rs["launches"], "r1cs_sweep": r1s["launches"]}

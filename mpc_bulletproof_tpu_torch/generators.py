@@ -24,7 +24,7 @@ from .ops.curve import StarkPoint
 from .ops.field import Scalar
 from .ops.keccak import keccak256, keccak256_batch, pad_label
 from .transcript import hash_to_scalar
-from .utils.device import resolve_device
+from .utils.device import normalize_device, resolve_device
 
 _TABLE_CACHE: dict = {}
 # Device tensors per gens object: keyed by id() with a strong reference held
@@ -38,7 +38,7 @@ def device_point_table(pt: StarkPoint, device) -> torch.Tensor:
     by default, both Pedersen bases."""
     from .ops import curve_t, msm
 
-    key = (pt.to_bytes(), str(torch.device(device)))
+    key = (pt.to_bytes(), normalize_device(device))
     table = _TABLE_CACHE.get(key)
     if table is None:
         base = torch.as_tensor(curve_t.points_from_host([pt]), device=device)
@@ -98,7 +98,7 @@ def device_gens(bp_gens: "BulletproofGens", n: int, m: int, device):
     from .ops.limb import NW
 
     per = gens_cache_entry(bp_gens)
-    key = ("gens", n, m, str(device))
+    key = ("gens", n, m, normalize_device(device))
     if key not in per:
         if n > bp_gens.gens_capacity or m > bp_gens.party_capacity:
             raise ValueError(f"generators for ({n}, {m}) exceed the capacity "

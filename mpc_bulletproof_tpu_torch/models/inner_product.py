@@ -410,7 +410,7 @@ def _create_device_fused(transcript, Q, G_factors, H_factors, G, H, a, b, device
                        _device_points([Q], device), ct.identity((1,), device)], dim=-1).contiguous()
     state = torch.as_tensor(tj.state_words(transcript.state), device=device)
     out = packio.pack_device(list(fused_ipp_body(n, device)(
-        state, sc(a), sc(b), sc(G_factors), sc(H_factors), table)))
+        state, sc(a), sc(b), sc(G_factors), sc(H_factors), {device: table})))
     rounds = (n - 1).bit_length()
     shapes = [(4,), (NW,), (NW,), (rounds, NW, 2), (rounds, NW, 2), (rounds, 2)]
     state_np, a_fin, b_fin, xs, ys, iids = packio.unpack_np(out.cpu().numpy(), shapes)
@@ -439,10 +439,10 @@ def _ipp_round_indices(n: int, cur: int):
 _ROUND_STEPS = ((b"L", 8), (b"R", 8), (b"u", None))
 
 
-def fused_ipp_body(n: int, device, table_gens: bool = False):
+def fused_ipp_body(n: int, device, table_gens: bool = False, mesh=None):
     """The fused IPP prover of size ``n`` (a power of two, at least 2).
 
-    Returns ``run(state, a, b, wG, wH, table, q_scale=None) -> (state,
+    Returns ``run(state, a, b, wG, wH, tables, q_scale=None) -> (state,
     a_final, b_final, xs, ys, iids)``: ``a``, ``b``, ``wG``, ``wH`` are
     ``(NW, n)`` scalars, and ``xs``, ``ys``, ``iids`` are the per-round
     affine L/R points ``(rounds, NW, 2)`` and identity flags ``(rounds, 2)``.
@@ -455,12 +455,22 @@ def fused_ipp_body(n: int, device, table_gens: bool = False):
     pair of 252-bit MSMs over its records (``c = select_window(n + 1)``):
     one sort, one bucket phase and one Horner chain with both outputs on the
     lane axis (:func:`..ops.msm._msm_multi_table_impl`).  The scalar
-    products and sums run on ``csrc/vec2.cu`` (:func:`_fr_mul`)."""
+    products and sums run on ``csrc/vec2.cu`` (:func:`_fr_mul`).
+
+    ``tables`` is ``{device: table}``, a copy on each device of ``mesh``
+    (:class:`..parallel.sharded.Mesh`, its lead ``device``; ``device``
+    alone by default): each round's pair MSM runs per shard over its slice
+    of the lanes (:func:`..parallel.sharded.sharded_table_msm`); the
+    products, folds and transcript stay on the lead.  The JAX package runs
+    only the range prover's ``table_gens`` branch over a mesh."""
     from ..ops import kernels
     from ..ops import msm as msm_mod
     from ..ops import transcript_t as tj
     from ..ops.limb import FR, NW
+    from ..parallel import sharded
 
+    if mesh is None:
+        mesh = sharded.Mesh([device])
     nh = n // 2
     if table_gens:
         records = lambda ix: torch.as_tensor(msm_mod.split_record_indices(ix, 2 * n + 1),
@@ -478,7 +488,7 @@ def fused_ipp_body(n: int, device, table_gens: bool = False):
     lanes = torch.arange(n, device=device)
     live_h = torch.arange(nh, device=device)
 
-    def run(state, a_d, b_d, wG, wH, table, q_scale=None):
+    def run(state, a_d, b_d, wG, wH, tables, q_scale=None):
         xs, ys, iids = [], [], []
         for cur, recL, recR in rounds:
             half = cur // 2
@@ -505,7 +515,7 @@ def fused_ipp_body(n: int, device, table_gens: bool = False):
                 sR = msm_mod.split_scalars_device(torch.cat([sR, _fr_mul(c_R, q_scale)], -1))
             else:
                 sL, sR = torch.cat([sL, c_L], dim=-1), torch.cat([sR, c_R], dim=-1)
-            LR = msm_mod._msm_multi_table_impl([(sL, recL), (sR, recR)], table, c, bits)
+            LR = sharded.sharded_table_msm([(sL, recL), (sR, recR)], tables, mesh, c, bits)
 
             x, y, iid = tj.lazy_points_to_affine(LR)
             state, u = tj.absorb_many(state, _ROUND_STEPS, tj.points_words(x, y, iid))

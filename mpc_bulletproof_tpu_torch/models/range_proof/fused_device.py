@@ -11,7 +11,9 @@ transcript absorb order is the dealer's (V_0..V_{m-1}, A, S, y, z | T_1,
 T_2, x | t_x, t_x_blinding, e_blinding, w, the IPP's domain | each IPP
 round's L, R, u; one keccak launch a run), and the
 aggregated values are the sums of the per-party shares, computed as global
-vector operations on the concatenated vectors.
+vector operations on the concatenated vectors.  Over a device mesh
+(``prove_multiple_device(..., mesh=...)``) the MSMs, the bit sum and the
+inner products split over its shards and the proof is the same bytes.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ...ops.curve import StarkPoint
 from ...ops.field import Scalar
 from ...ops.keccak import pad_label
 from ...transcript import HashChainTranscript
-from ...utils.device import resolve_device
+from ...utils.device import normalize_device, resolve_device
 from ...utils.errors import MPCError
 from ..inner_product import InnerProductProof, fused_ipp_body
 
@@ -38,7 +40,7 @@ def _device_split_table(bp_gens: BulletproofGens, pc_gens: PedersenGens, n: int,
     from ...ops import msm as msm_mod
 
     per = gens_cache_entry(bp_gens)
-    key = ("split", n, m, id(pc_gens), str(device))
+    key = ("split", n, m, id(pc_gens), normalize_device(device))
     if key not in per:
         G, H = device_gens(bp_gens, n, m, device)
         B = torch.as_tensor(curve_t.points_from_host([pc_gens.B]), device=device)
@@ -49,24 +51,35 @@ def _device_split_table(bp_gens: BulletproofGens, pc_gens: PedersenGens, n: int,
 def _device_pc(pc_gens: PedersenGens, device):
     """Fixed-base tables ``[B rows | B_blinding rows]``."""
     per = gens_cache_entry(pc_gens)
-    key = ("pc", str(device))
+    key = ("pc", normalize_device(device))
     if key not in per:
         per[key] = torch.cat([device_point_table(pc_gens.B, device),
                               device_point_table(pc_gens.B_blinding, device)], dim=-1)
     return per[key]
 
 
-def _program(n: int, m: int, device):
-    """The prover body for bitsize ``n`` and ``m`` parties on ``device``."""
+def _program(n: int, m: int, mesh):
+    """The prover body for bitsize ``n`` and ``m`` parties over ``mesh``
+    (:class:`...parallel.sharded.Mesh`; one device unsharded).
+
+    The bulk splits over the mesh's shards, as the JAX package's one SPMD
+    program over a device mesh: the S MSM and every IPP round's pair MSM
+    per shard against a copy of the split table on each shard's device
+    (``split_table`` is ``{device: table}``), the A bit sum and the
+    t-polynomial's and ``zgamma``'s inner products per shard, each followed
+    by its collective on the lead.  ``fixed_commit``, the transcript and
+    the elementwise work run once, on the lead."""
     from ...ops import curve_t as ct
     from ...ops import kernels, limb
     from ...ops import msm as msm_mod
     from ...ops import packio
     from ...ops import transcript_t as tj
     from ...ops.limb import FR, NW
+    from ...parallel import sharded
 
+    device = mesh.lead
     nm = n * m
-    ipp_run = fused_ipp_body(nm, device, table_gens=True)
+    ipp_run = fused_ipp_body(nm, device, table_gens=True, mesh=mesh)
     rec_S = torch.as_tensor(
         msm_mod.split_record_indices(np.arange(2 * nm), 2 * nm + 1), device=device)
     exp2 = torch.as_tensor(np.concatenate([limb.ints_to_words([1 << i for i in range(n)])] * m,
@@ -75,6 +88,7 @@ def _program(n: int, m: int, device):
     mul = lambda a, b: limb.mod_mul(a, b, FR)
     add = lambda a, b: limb.mod_add(a, b, FR)
     sub = lambda a, b: limb.mod_sub(a, b, FR)
+    inner = lambda a, b: sharded.sharded_inner_product(a, b, mesh)[:, None]
 
     def absorb_points(state, labels, pts, challenges=()):
         """Affine-convert a ``(3, NW, k)`` batch, absorb with per-point
@@ -104,12 +118,12 @@ def _program(n: int, m: int, device):
         ident = ct.identity((nm,), device)
         selG = ct._point_select(bits_b, G, ident)
         selH = ct._point_select(bits_b, ident, ct._point_neg(H))
-        A_pt = kernels.point_add(msm_mod._reduce_sum(torch.cat([selG, selH], dim=-1)),
-                                 A_blind.contiguous())
+        A_sum = sharded.sharded_point_sum(torch.cat([selG, selH], dim=-1), mesh)[..., None]
+        A_pt = kernels.point_add(A_sum, A_blind.contiguous())
 
         # S = <s_L, G> + <s_R, H> + rho B~ by 64-bit chunks on the split table
         s4_S = msm_mod.split_scalars_device(torch.cat([sL, sR], dim=-1))
-        S_msm = msm_mod._msm_multi_table_impl([(s4_S, rec_S)], split_table, msm_mod.SPLIT_WINDOW)
+        S_msm = sharded.sharded_table_msm([(s4_S, rec_S)], split_table, mesh, msm_mod.SPLIT_WINDOW)
         S_pt = kernels.point_add(S_msm, S_blind.contiguous())
 
         state, yz, (Vx, Vy, Vid) = absorb_points(state, [b"V"] * m + [b"A", b"S"],
@@ -132,7 +146,6 @@ def _program(n: int, m: int, device):
         r1 = mul(y_pows, sR)
 
         # t-polynomial (aggregated over parties: global inner products)
-        inner = lambda a, b: limb.inner_product_mod(a, b, FR)[:, None]
         t0 = inner(l0, r0)
         t2 = inner(l1, r1)
         t1 = sub(sub(inner(add(l0, l1), add(r0, r1)), t0), t2)
@@ -182,20 +195,32 @@ def prove_multiple_device(
     *,
     device="cuda",
     rng_bytes=None,
+    mesh=None,
 ):
     """Aggregated proof that every value is in ``[0, 2^n)``, on ``device``.
 
     Same proof, commitments and final transcript state as the host
     party/dealer path.  ``rng_bytes(k)`` is the blinding stream; its draws
     come in the party order (per party: a, s, s_L, s_R; then per party
-    t1, t2 blindings), so an injected stream reproduces the host's proof."""
+    t1, t2 blindings), so an injected stream reproduces the host's proof.
+    ``mesh`` (:class:`...parallel.sharded.Mesh`) splits the prover's MSMs,
+    point sum and inner products over its shards (:func:`_program`); the
+    rest runs on its lead, which takes the place of ``device`` and must be
+    of its type.  The proof is the same bytes.  Without one the prover runs
+    on the mesh of ``device`` alone."""
     from ...ops import curve_t as ct
     from ...ops import packio
     from ...ops import transcript_t as tj
     from ...ops.limb import NW, words_to_ints
+    from ...parallel.sharded import Mesh
     from .. import range_proof
 
     device = resolve_device(device)
+    if mesh is None:
+        mesh = Mesh([device])
+    elif mesh.lead.type != device.type:
+        raise ValueError(f"prove_multiple_device: mesh {mesh} is not on the device type {device.type}")
+    device = mesh.lead
     if len(values) != len(blindings):
         raise MPCError("wrong number of blindings")
     m = len(values)
@@ -233,12 +258,12 @@ def prove_multiple_device(
     bits = np.array([(int(v) >> i) & 1 for v in values for i in range(n)], dtype=np.int64)
     G_dev, H_dev = device_gens(bp_gens, n, m, device)
     fb_table = _device_pc(pc_gens, device)
-    split_table = _device_split_table(bp_gens, pc_gens, n, m, device)
+    split_table = {dev: _device_split_table(bp_gens, pc_gens, n, m, dev) for dev in mesh.devices}
 
     sc = lambda xs: torch.as_tensor(ct.scalars_from_host(xs), device=device)
     sum_s = lambda xs: Scalar(sum(int(x) for x in xs))
     state = torch.as_tensor(tj.state_words(transcript.state), device=device)
-    out = _program(n, m, device)(
+    out = _program(n, m, mesh)(
         state, torch.as_tensor(bits, device=device), sc([Scalar(int(v)) for v in values]),
         sc(blindings), sc([sum_s(a_blind)]), sc([sum_s(s_blind)]), sc(sL_all), sc(sR_all),
         sc([sum_s(t1b)]), sc([sum_s(t2b)]), G_dev, H_dev, fb_table, split_table,

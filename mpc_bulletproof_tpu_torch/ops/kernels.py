@@ -45,8 +45,9 @@ one) launches ``keccak_transcript``.
 Every wrapper checks dtype, shape and contiguity the same way for every
 device.  For a tensor on the CPU it runs the plain PyTorch version beside
 it (the CPU tests use those); for a CUDA tensor it launches the kernel on
-the current stream, raises if the launch was refused, and counts the
-launch in :data:`launches`.  There is no fallback from one to the other.
+that tensor's card and its current stream, raises if the launch was
+refused, and counts the launch in :data:`launches`.  There is no fallback
+from one to the other.
 
 The kernels are compiled with ``nvcc`` at first use, one shared library
 per source, all sources at once (:func:`build`), into ``build/`` beside
@@ -186,9 +187,17 @@ def _fn(name: str):
     return fn
 
 
-def _launch(name: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = _fn(name)(*args, stream)
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on the current stream of ``device``, the
+    operands' card.  The ctypes entry launches on the calling thread's
+    current device, so a ``device`` that is not current is made current
+    around it: on a mesh whose shards sit on several cards, each shard's
+    kernels run on its own.  On the current card nothing is switched."""
+    if device.index == torch.cuda.current_device():
+        rc = _fn(name)(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = _fn(name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     with _LOCK:
@@ -229,7 +238,7 @@ def point_add_design(lanes: int) -> str:
 
 def _point_add_launch(a: torch.Tensor, b: torch.Tensor, design: str) -> torch.Tensor:
     out = torch.empty_like(a)
-    _launch("point_add", a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // (3 * NW),
+    _launch("point_add", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // (3 * NW),
             {"wide": 0, "narrow": 1}[design])
     return out
 
@@ -268,7 +277,7 @@ def point_scan_steps_inner(x: torch.Tensor) -> torch.Tensor:
     if dev == "cpu":
         return point_scan_plain(x)
     out = torch.empty_like(x)
-    _launch("point_scan_steps_inner", x.data_ptr(), out.data_ptr(), x.shape[2], x.shape[3])
+    _launch("point_scan_steps_inner", x.device, x.data_ptr(), out.data_ptr(), x.shape[2], x.shape[3])
     return out
 
 
@@ -286,7 +295,7 @@ def point_scan_steps(x: torch.Tensor) -> torch.Tensor:
     if dev == "cpu":
         return point_scan_steps_plain(x)
     out = torch.empty_like(x)
-    _launch("point_scan_steps", x.data_ptr(), out.data_ptr(), x.shape[1], x.shape[3])
+    _launch("point_scan_steps", x.device, x.data_ptr(), out.data_ptr(), x.shape[1], x.shape[3])
     return out
 
 
@@ -317,7 +326,7 @@ def point_horner_multi(window_sums: torch.Tensor, c: int) -> torch.Tensor:
         return point_horner_plain(window_sums, c)
     nw, _, _, k = window_sums.shape
     out = torch.empty((3, NW, k), dtype=torch.int64, device=window_sums.device)
-    _launch("point_horner_multi", window_sums.data_ptr(), out.data_ptr(), nw, c, k)
+    _launch("point_horner_multi", window_sums.device, window_sums.data_ptr(), out.data_ptr(), nw, c, k)
     return out
 
 
@@ -425,7 +434,7 @@ def _point_reduce_launch(pts: torch.Tensor, plan: list) -> torch.Tensor:
     for kind, param in plan:
         m = x.shape[-1]
         out = torch.empty((3, NW, S, _pass_width(m, kind, param)), dtype=torch.int64, device=pts.device)
-        _launch("point_reduce", x.data_ptr(), out.data_ptr(), S, m, int(kind == "fold"), param)
+        _launch("point_reduce", x.device, x.data_ptr(), out.data_ptr(), S, m, int(kind == "fold"), param)
         x = out
     out = x.reshape(3, NW, *batch, 1)
     return out if plan else out.clone()
@@ -513,7 +522,7 @@ def mod_pow_plain(x: torch.Tensor, exponent: int, mp: ModParams) -> torch.Tensor
 def _mod_pow_launch(x: torch.Tensor, exponent: int, mp: ModParams, inverse: bool) -> torch.Tensor:
     out = torch.empty_like(x)
     ew = [(exponent >> (64 * j)) & ((1 << 64) - 1) for j in range(4)]
-    _launch("mod_pow_static", x.data_ptr(), out.data_ptr(), x.shape[-1], *ew,
+    _launch("mod_pow_static", x.device, x.data_ptr(), out.data_ptr(), x.shape[-1], *ew,
             0 if mp is FP else 1, int(inverse))
     return out
 
@@ -557,7 +566,7 @@ def _vec2(op: str, a: torch.Tensor, b: torch.Tensor, mp: ModParams) -> torch.Ten
     if dev == "cpu":
         return plain(a, b, mp).contiguous()
     out = torch.empty_like(a)
-    _launch("vec2", a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[-1], b.shape[-1], code,
+    _launch("vec2", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[-1], b.shape[-1], code,
             0 if mp is FP else 1)
     return out
 
@@ -623,7 +632,7 @@ def beaver_diff(x: torch.Tensor, y: torch.Tensor, triple: torch.Tensor) -> torch
     if dev == "cpu":
         return beaver_diff_plain(x, y, triple)
     out = torch.empty((NW, 2 * k), dtype=torch.int64, device=x.device)
-    _launch("beaver_diff", x.data_ptr(), y.data_ptr(), triple.data_ptr(), out.data_ptr(), k)
+    _launch("beaver_diff", x.device, x.data_ptr(), y.data_ptr(), triple.data_ptr(), out.data_ptr(), k)
     return out
 
 
@@ -654,7 +663,7 @@ def beaver_combine(de: torch.Tensor, triple: torch.Tensor, alpha: int, party: in
     if dev == "cpu":
         return beaver_combine_plain(de, triple, int(alpha), party)
     out = torch.empty((2, NW, k), dtype=torch.int64, device=de.device)
-    _launch("beaver_combine", de.data_ptr(), de.shape[-1], triple.data_ptr(), out.data_ptr(), k, party,
+    _launch("beaver_combine", de.device, de.data_ptr(), de.shape[-1], triple.data_ptr(), out.data_ptr(), k, party,
             *words)
     return out
 
@@ -676,7 +685,7 @@ def poly3_eval(coeffs: torch.Tensor, x: int) -> torch.Tensor:
     if dev == "cpu":
         return poly3_eval_plain(coeffs, int(x))
     out = torch.empty((2, NW, k), dtype=torch.int64, device=coeffs.device)
-    _launch("poly3_eval", coeffs.data_ptr(), out.data_ptr(), k, *words)
+    _launch("poly3_eval", coeffs.device, coeffs.data_ptr(), out.data_ptr(), k, *words)
     return out
 
 
@@ -714,7 +723,7 @@ def keccak_chain(starts: torch.Tensor, skip: int, count: int) -> torch.Tensor:
         return keccak_chain_plain(starts, skip, count)
     out = torch.empty((starts.shape[0], count, 32), dtype=torch.uint8, device=starts.device)
     if starts.shape[0] and count:
-        _launch("keccak_chain", starts.data_ptr(), out.data_ptr(), starts.shape[0], skip, count)
+        _launch("keccak_chain", starts.device, starts.data_ptr(), out.data_ptr(), starts.shape[0], skip, count)
     return out
 
 
@@ -724,7 +733,7 @@ def keccak256_32(msgs: torch.Tensor) -> torch.Tensor:
         return keccak256_32_plain(msgs)
     out = torch.empty_like(msgs)
     if msgs.shape[0]:
-        _launch("keccak256_32", msgs.data_ptr(), out.data_ptr(), msgs.shape[0])
+        _launch("keccak256_32", msgs.device, msgs.data_ptr(), out.data_ptr(), msgs.shape[0])
     return out
 
 
@@ -806,7 +815,7 @@ def keccak_transcript(starts: torch.Tensor, plan: TranscriptPlan, msgs: torch.Te
     states = torch.empty_like(starts)
     chals = torch.empty((starts.shape[0], NW, plan.challenges), dtype=torch.int64, device=starts.device)
     if starts.shape[0]:
-        _launch("keccak_transcript", starts.data_ptr(), plan.template.data_ptr(), plan.layout.data_ptr(),
+        _launch("keccak_transcript", starts.device, starts.data_ptr(), plan.template.data_ptr(), plan.layout.data_ptr(),
                 msgs.data_ptr(), starts.shape[0], plan.template.shape[0], plan.words, plan.challenges,
                 states.data_ptr(), chals.data_ptr())
     return states, chals

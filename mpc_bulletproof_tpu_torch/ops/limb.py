@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..constants import P, R
+from ..utils.device import normalize_device
 
 NW = 4  # 64-bit words per element
 PIECE_BITS = 16
@@ -48,7 +49,7 @@ _CONST: dict = {}
 
 def _const(key, device, make):
     """Per-device cache of small constant tensors."""
-    k = (key, str(device))
+    k = (key, normalize_device(device))
     t = _CONST.get(k)
     if t is None:
         t = make().to(device)

@@ -322,13 +322,17 @@ def msm_host_points(scalars, points, c: int | None = None, *, device="cuda"):
     -> ``StarkPoint``, computed by :func:`msm_device` on ``device`` (the card
     unless the caller asks for the CPU).  ``points`` may also be a ``(3, NW,
     n)`` point tensor already on the device (cached generators)."""
-    dev = resolve_device(device)
-    s = torch.as_tensor(curve_t.scalars_from_host(scalars), device=dev)
-    if isinstance(points, torch.Tensor):
-        p = points.to(dev)
-    else:
-        p = torch.as_tensor(curve_t.points_from_host(points), device=dev)
+    s, p = device_operands(scalars, points, resolve_device(device))
     return curve_t.points_to_host(msm_device(s, p, c)[..., None])[0]
+
+
+def device_operands(scalars, points, device: torch.device):
+    """Host scalars, and host points or a point tensor -> ``(NW, n)``
+    scalars and ``(3, NW, n)`` points on ``device``."""
+    s = torch.as_tensor(curve_t.scalars_from_host(scalars), device=device)
+    if isinstance(points, torch.Tensor):
+        return s, points.to(device)
+    return s, torch.as_tensor(curve_t.points_from_host(points), device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -185,7 +185,7 @@ def probe_chain(op: str, x: torch.Tensor, y: torch.Tensor, reps: int = CHAIN_REP
     if _check(op, CHAIN_OPS, reps, x, y) == "cpu":
         return chain_plain(op, x, y, reps)
     out = torch.empty_like(x)
-    kernels._launch("probe_chain", x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), reps,
+    kernels._launch("probe_chain", x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), reps,
                     CHAIN_OPS.index(op))
     return out
 
@@ -196,7 +196,7 @@ def probe_xor_chain(op: str, x: torch.Tensor, reps: int) -> torch.Tensor:
     if _check(op, XOR_OPS, reps, x) == "cpu":
         return xor_chain_plain(op, x, reps)
     out = torch.empty_like(x)
-    kernels._launch("probe_xor_chain", x.data_ptr(), out.data_ptr(), x.numel(), reps,
+    kernels._launch("probe_xor_chain", x.device, x.data_ptr(), out.data_ptr(), x.numel(), reps,
                     XOR_OPS.index(op))
     return out
 
@@ -207,6 +207,6 @@ def probe_accum(op: str, a: torch.Tensor, b: torch.Tensor, rep: int = ACCUM_REP)
     if _check(op, ACCUM_OPS, rep, a, b) == "cpu":
         return accum_plain(op, a, b, rep)
     out = torch.empty_like(a)
-    kernels._launch("probe_accum", a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), rep,
+    kernels._launch("probe_accum", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), rep,
                     ACCUM_OPS.index(op))
     return out

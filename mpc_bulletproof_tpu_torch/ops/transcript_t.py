@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..constants import P
+from ..utils.device import normalize_device
 from . import kernels, limb
 from .keccak import pad_label
 from .keccak_t import RATE
@@ -45,7 +46,7 @@ def _plan(steps: tuple, device) -> kernels.TranscriptPlan:
     template ``(J, 17)`` words (each label, host constants, the 0x01 after
     the message and the final 0x80) and the layout ``(J, 4)`` that
     :func:`..kernels.keccak_transcript` reads, checked on the host."""
-    key = (steps, str(device))
+    key = (steps, normalize_device(device))
     hit = _PLANS.get(key)
     if hit is not None:
         return hit

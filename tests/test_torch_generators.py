@@ -155,7 +155,7 @@ def test_keccak_wrappers_launch_for_card_tensors(monkeypatch):
     the launch when there is nothing to compute."""
     calls = []
     monkeypatch.setattr(kernels, "_check_rows32", lambda t, what: "cuda")
-    monkeypatch.setattr(kernels, "_launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(kernels, "_launch", lambda name, device, *args: calls.append((name, args)))
     starts = torch.zeros((3, 32), dtype=torch.uint8)
     out = kernels.keccak_chain(starts, 5, 7)
     assert out.shape == (3, 7, 32)

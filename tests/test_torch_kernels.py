@@ -468,7 +468,7 @@ def recorded_launches(monkeypatch):
     card and ``_launch`` records its arguments instead of launching."""
     calls = []
     monkeypatch.setattr(kernels, "_check", lambda t, *a, **kw: "cuda")
-    monkeypatch.setattr(kernels, "_launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(kernels, "_launch", lambda name, device, *args: calls.append((name, args)))
     return calls
 
 

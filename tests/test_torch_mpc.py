@@ -370,7 +370,7 @@ def test_device_branch_launches_vec2_only(monkeypatch):
     lanes_arg = {"vec2": 3, "beaver_diff": 4, "beaver_combine": 4, "poly3_eval": 2}
     calls = []
     monkeypatch.setattr(kernels, "_check", lambda t, *a, **kw: "cuda")
-    monkeypatch.setattr(kernels, "_launch", lambda name, *args: calls.append((name, args[lanes_arg[name]])))
+    monkeypatch.setattr(kernels, "_launch", lambda name, device, *args: calls.append((name, args[lanes_arg[name]])))
 
     def no_plain(*a, **kw):
         raise AssertionError("plain version reached on a CUDA device")
@@ -588,17 +588,20 @@ def test_launch_counter_is_safe_for_party_threads(monkeypatch):
     """Both parties launch kernels from their own threads: the launch
     counter loses no update under threads switching every microsecond
     (the launch itself stubbed, as no card is here)."""
+    import contextlib
     import sys
     import types
 
     monkeypatch.setattr(kernels, "_fn", lambda name: lambda *args: 0)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     kernels.reset_launches()
     workers, calls = 16, 2000
 
     def work():
         for _ in range(calls):
-            kernels._launch("vec2")
+            kernels._launch("vec2", torch.device("cuda", 0))
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)

@@ -148,7 +148,8 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "models/range_proof/party.py", "models/range_proof/dealer.py",
                    "models/range_proof/messages.py", "integration/__init__.py", "integration/main.py",
                    "integration/launch.py", "ops/fold.py", "utils/profiling.py", "generators.py",
-                   "ops/keccak_t.py", "ops/kernels.py", "ops/transcript_t.py", "ops/curve_t.py", "pinned.py"):
+                   "ops/keccak_t.py", "ops/kernels.py", "ops/transcript_t.py", "ops/curve_t.py", "pinned.py",
+                   "parallel/sharded.py"):
         assert f"mpc_bulletproof_tpu_torch/{module}" in names
     for f in files:
         for name in _imports(f):

@@ -188,7 +188,7 @@ def test_keccak_transcript_launches_for_card_tensors(monkeypatch):
     call a run."""
     calls = []
     monkeypatch.setattr(kernels, "_check", lambda t, what, shape=None, lead=None: "cuda")
-    monkeypatch.setattr(kernels, "_launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(kernels, "_launch", lambda name, device, *args: calls.append((name, args)))
     monkeypatch.setattr(kernels, "keccak_transcript_plain",
                         lambda *a: pytest.fail("the plain version ran for a card tensor"))
     plan = kernels.transcript_plan(np.zeros((3, 17), dtype=np.int64),
